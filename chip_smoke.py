@@ -1,0 +1,449 @@
+"""Drive tpu3dm_torch's main path on one NVIDIA GPU and hold every kernel
+against its plain PyTorch version.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no ok line):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels of tpu3dm_torch/csrc, one nvcc per source, all
+     started together;
+  3. preprocess the 8 benchmark pairs (make_benchmark_pair(20000, seed=s,
+     sigma=0.01), s = 0..7) on the card, pad them to the shared capacity
+     and tile them to 2048 pair lanes, as bench.py does;
+  4. each kernel against its plain version at the main path's shapes (2048
+     lanes, M = N = 1024, K = 4096), every lane jittered and thinned on its
+     own so that no two lanes hold the same data, with kernel, plain and
+     library-yardstick times and each kernel's bound;
+  5. the main path: fused_register_step over the 2048 lanes (4096
+     hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
+     search, bf16 score), launch counts zeroed just before and read just
+     after; every lane gated (rotation < 2 deg, RMSE < 0.1 against its
+     T_true); 4 lanes checked against the same step on the CPU; pairs/s
+     and stage times;
+  6. one JSON line of per-kernel numbers, then the ok line, last.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+LANES = 2048
+PAIRS = 8
+N_POINTS = 20_000
+HYPOTHESES = 4096
+ICP_ITERS = 8
+ICP_SOLVES_PER_NN = 4
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
+# bandwidth; fp32 outside the tensor cores, which counts an FMA as two flops,
+# so an add or a compare issues at half that rate; bf16 tensor cores with
+# fp32 accumulation.
+PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
+PEAK_BF16_FLOPS = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        import tpu3dm_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+        return 3
+
+    from tpu3dm_torch.core import se3
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.csrc import KERNELS, build, reset_launch_counts
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.ops import nn_lane, ransac_score
+    from tpu3dm_torch.ops.compact import compaction_permutation
+    from tpu3dm_torch.parallel.multipair import (
+        draw_sample_bits,
+        f32_square,
+        ransac_pair_step,
+    )
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration import hypotheses as hyp
+    from tpu3dm_torch.registration.fused import (
+        _pn_center,
+        fused_register_step,
+        icp_polish,
+        mutual_correspondences,
+    )
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    # --- 2. build ---------------------------------------------------------
+    t0 = time.time()
+    reports = build()
+    log(f"build: {time.time() - t0:.1f} s for {sorted(reports) or 'cached libraries'}")
+    for src, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  {src}: {line.strip()}")
+
+    # --- 3. data ------------------------------------------------------------
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    t0 = time.time()
+    clouds, trues, moments = [], [], []
+    for s in range(PAIRS):
+        sp, tp, T = make_benchmark_pair(N_POINTS, seed=s, sigma=0.01)
+        clouds.append((preprocess_points(sp, cfg.preprocess).down,
+                       preprocess_points(tp, cfg.preprocess).down))
+        trues.append(T)
+        moments.append((sp.mean(0), sp.T @ sp / sp.shape[0]))
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    cap = max(max(a.capacity, b.capacity) for a, b in clouds)
+    counts = [int(c.mask.sum()) for pair in clouds for c in pair]
+    log(f"preprocess: {2 * PAIRS} clouds in {ingest_s:.2f} s (first CUDA use included); "
+        f"down counts {min(counts)}-{max(counts)}, shared capacity {cap}")
+
+    def padded(which: int, attr: str) -> torch.Tensor:
+        rows = []
+        for pair in clouds:
+            x = getattr(pair[which], attr)
+            pad = torch.zeros((cap - x.shape[0],) + x.shape[1:], dtype=x.dtype, device=dev)
+            rows.append(torch.cat([x, pad]))
+        base = torch.stack(rows)
+        return base.repeat((LANES // PAIRS,) + (1,) * (base.ndim - 1)).contiguous()
+
+    attrs = ("points", "features", "mask", "normals")
+    src = {a: padded(0, a) for a in attrs}
+    tgt = {a: padded(1, a) for a in attrs}
+    T_true = np.tile(np.stack(trues), (LANES // PAIRS, 1, 1))
+    m_s = hyp.sample_row_count(cap, HYPOTHESES)
+    bits = draw_sample_bits(LANES, 1, m_s, torch.Generator().manual_seed(0))
+    step_kw = dict(
+        dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+        ransac_iterations=HYPOTHESES, ransac_batch=HYPOTHESES,
+        icp_iterations=ICP_ITERS, icp_solves_per_nn=ICP_SOLVES_PER_NN,
+        approx_score=True, approx_features=False, nn_impl="lane", rescue_restarts=0,
+    )
+
+    def run_step(lanes=slice(None), device=None):
+        args = [d[a][lanes] for d in (src, tgt) for a in attrs]
+        if device == "cpu":
+            args = [x.cpu() for x in args]
+        return fused_register_step(*args, bits[lanes], device=device, **step_kw)
+
+    # --- 4. kernels against their plain versions ---------------------------
+    # At the main path's shapes, all LANES lanes.  The lanes tile PAIRS pairs,
+    # so each lane gets its own jitter and drops its own ~5% of points: a
+    # kernel that reads another lane's data then disagrees with its plain
+    # version.
+    def cuda_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound_ms(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+        """The larger of bytes over the memory rate and, for each (operations,
+        peak rate) of ``work``, operations over that rate."""
+        times = [n_bytes / PEAK_HBM_BYTES] + [ops / rate for ops, rate in work]
+        return max(times) * 1e3, ("bytes" if times[0] >= max(times) else "operations")
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def jitter(x: torch.Tensor, scale: float) -> torch.Tensor:
+        return (x + scale * torch.randn(x.shape, generator=gen, device=dev)).contiguous()
+
+    def thin(mask: torch.Tensor) -> torch.Tensor:
+        return mask & (torch.rand(mask.shape, generator=gen, device=dev) > 0.05)
+
+    def lane_counts(mask: torch.Tensor) -> torch.Tensor:
+        return mask.sum(-1).double()
+
+    results = {}
+
+    # Kernel 1: 3-D NN, the ICP search at convergence (source moved by T_true).
+    frame_c = _pn_center(tgt["points"], tgt["mask"])
+    T_c = torch.as_tensor(T_true, dtype=torch.float32, device=dev).clone()
+    T_c[:, :3, 3] += torch.einsum("bij,bj->bi", T_c[:, :3, :3], frame_c) - frame_c
+    sm, tm = thin(src["mask"]), thin(tgt["mask"])
+    tp = jitter(tgt["points"] - frame_c[:, None], 1e-3)
+    q = jitter(se3.apply(T_c, src["points"] - frame_c[:, None]), 1e-3)
+    d2k, idxk = nn_lane.nn_search_lane(q, tp, sm, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(q, tp, sm, tm)
+    torch.cuda.synchronize()
+    idx_agree = (idxk == idxp)[sm].float().mean().item()
+    d2_err = (d2k - d2p).abs()[sm].max().item()
+    if idx_agree < 0.999 or d2_err > 1e-4:
+        fail(f"lane_nn_smalld disagrees: idx {idx_agree:.6f}, max |d2| err {d2_err:.3g}")
+    far = torch.where(tm[..., None], tp, torch.full_like(tp, 1e9))
+    b, m, n = q.shape
+    nq, nt = lane_counts(sm), lane_counts(tm)
+    # Needed work: valid queries x valid targets, 9 flops each (3 subtractions,
+    # 3 squares summed, + bias); bytes: valid rows, the target mask, and d2 and
+    # idx of every query.
+    results["lane_nn_smalld"] = dict(
+        agree=idx_agree, max_abs_err=d2_err,
+        ms=cuda_ms(lambda: nn_lane.nn_search_lane(q, tp, sm, tm), 10),
+        plain_ms=cuda_ms(lambda: nn_lane.nn_search_lane_plain(q, tp, sm, tm), 2),
+        library_ms=cuda_ms(lambda: torch.cdist(q, far).argmin(-1), 2),
+        bound=bound_ms(12 * (nq.sum() + nt.sum()).item() + b * n + 8 * b * m,
+                       (9.0 * (nq * nt).sum().item(), PEAK_FP32_FLOPS)),
+    )
+    del d2k, idxk, d2p, idxp, far
+
+    # Kernel 2: mutual 33-D FPFH NN.
+    fa, fb = jitter(src["features"], 0.05), jitter(tgt["features"], 0.05)
+    idxk, mutk = nn_lane.nn_mutual_mask_lane(fa, fb, sm, tm)
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(fa, fb, sm, tm)
+    torch.cuda.synchronize()
+    agree = ((idxk == idxp) & (mutk == mutp))[sm].float().mean().item()
+
+    def pick_d2(idx):  # float64 distance of each row to its pick
+        g = torch.gather(fb.double(), 1, idx.long()[..., None].expand(-1, -1, 33))
+        return ((fa.double() - g) ** 2).sum(-1)
+
+    mut_err = (pick_d2(idxk) - pick_d2(idxp)).abs()[sm].max().item()
+    if agree < 0.999:
+        fail(f"lane_mutual disagrees with its plain version on {1 - agree:.4%} of rows")
+    far = torch.where(tm[..., None], fb, torch.full_like(fb, 1e9))
+
+    def mutual_library():
+        d = torch.cdist(fa, far)
+        idx = d.argmin(-1)
+        return d.amin(-1) <= torch.gather(d.amin(-2), -1, idx)
+
+    na, nb = fa.shape[1], fb.shape[1]
+    # Needed work: valid rows x valid columns, 68 flops each (33 FMAs, the
+    # norms' add, the -2 scale); bytes: valid feature rows, both masks, and
+    # idx and mutual of every row.
+    results["lane_mutual"] = dict(
+        agree=agree, max_abs_err=mut_err,
+        ms=cuda_ms(lambda: nn_lane.nn_mutual_mask_lane(fa, fb, sm, tm), 5),
+        plain_ms=cuda_ms(lambda: nn_lane.nn_mutual_lane_plain(fa, fb, sm, tm), 2),
+        library_ms=cuda_ms(mutual_library, 2),
+        bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
+                       (68.0 * (nq * nt).sum().item(), PEAK_FP32_FLOPS)),
+    )
+    del idxk, mutk, idxp, mutp, far
+
+    # Kernel 3: the RANSAC score of one 4096-hypothesis chunk, built from the
+    # lanes' own correspondences as ransac_pair_step builds it (centred
+    # correspondences, roll sampler, triangle-frame fits, bf16-rounded
+    # features, as approx_score does).
+    qa, valid = mutual_correspondences(fa, fb, sm, tm, tp)
+    p = jitter(src["points"] - frame_c[:, None], 1e-3)
+    w = valid.float()[..., None]
+    c0 = ((p + qa) * 0.5 * w).sum(-2) / w.sum(-2).clamp_min(1.0)
+    p = torch.where(valid[..., None], p - c0[:, None], 0.0)
+    qa = torch.where(valid[..., None], qa - c0[:, None], 0.0)
+    ga, gb, gc = hyp.rolled_sample_gathers(
+        bits[:, 0].to(dev), torch.cat([p, qa], -1), valid.sum(-1), HYPOTHESES,
+        rank_to_idx=compaction_permutation(valid))
+    R, t, _ = hyp.fit3_frames(ga[..., :3], gb[..., :3], gc[..., :3],
+                              ga[..., 3:], gb[..., 3:], gc[..., 3:])
+    H, e = hyp.hypothesis_features_planar(R, t)
+    F, c = ransac_score.corres_features(p, qa)
+    H = H.to(torch.bfloat16).float().contiguous()
+    F = F.to(torch.bfloat16).float().contiguous()
+    c, e, v = c.contiguous(), e.contiguous(), valid.contiguous()
+    del qa, p, w, ga, gb, gc, R, t, fa, fb
+
+    thr = f32_square(cfg.ransac.dist_thresh)
+    ck = ransac_score.score_features(H, e, F, c, v, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+    torch.cuda.synchronize()
+    diff = (ck - cp).abs()
+    exact = (diff == 0).float().mean().item()
+    if diff.max().item() > 1 or exact < 0.999:
+        fail(f"ransac_score: counts equal on {exact:.4%} of hypotheses, "
+             f"max difference {diff.max().item()}")
+    k, nn_ = H.shape[1], F.shape[1]
+    Ft = F.transpose(-1, -2)
+
+    def score_library():  # one fp32 [b, k, n] tensor (34 GB at full size), in place
+        d2 = torch.baddbmm(c[:, None, :], H, Ft).add_(e[:, :, None])
+        return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
+
+    nv = lane_counts(v)
+    # Needed work: every hypothesis x the lane's valid correspondences.  H and
+    # F hold bf16 values, so the product is a bf16 tensor-core product with
+    # fp32 accumulation (16 multiply-adds, 32 flops) and an fp32 epilogue of
+    # two operations (the add of c_n + e_k and the compare); bytes: H, e and
+    # the counts in full, valid rows of F and c, the mask.
+    results["ransac_score"] = dict(
+        agree=exact, max_abs_err=float(diff.max().item()),
+        ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 5),
+        plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 2),
+        library_ms=cuda_ms(score_library, 2),
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv.sum().item() + b * nn_,
+                       (32.0 * k * nv.sum().item(), PEAK_BF16_FLOPS),
+                       (2.0 * k * nv.sum().item(), PEAK_FP32_OPS)),
+    )
+    del H, e, F, c, v, Ft, ck, cp, diff
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log(f"kernel {name}: agree {r['agree']:.6f}, max abs err {r['max_abs_err']:.3g}; "
+            f"{LANES} lanes: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+    # --- 5. main path -----------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()  # the kernel phase's yardsticks are not the step's
+    run_step()  # warm-up: allocator, cuBLAS handles, module loads
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    T_gpu, fit, rmse = run_step()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    for name, nl in launches.items():
+        if nl <= 0:
+            fail(f"the main path launched kernel {name} no time")
+
+    T = T_gpu.double().cpu().numpy()
+    if not (np.isfinite(T).all() and T.shape == (LANES, 4, 4)):
+        fail("non-finite or misshapen transforms")
+    M = T[:, :3, :3] @ np.swapaxes(T_true[:, :3, :3], 1, 2)
+    rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    mu = np.tile(np.stack([mo[0] for mo in moments]), (LANES // PAIRS, 1))
+    M2 = np.tile(np.stack([mo[1] for mo in moments]), (LANES // PAIRS, 1, 1))
+    A = T[:, :3, :3] - T_true[:, :3, :3]
+    bb = T[:, :3, 3] - T_true[:, :3, 3]
+    rmse_true = np.sqrt(np.maximum(
+        np.einsum("bij,bjk,bik->b", A, M2, A) + 2 * np.einsum("bi,bij,bj->b", bb, A, mu)
+        + (bb * bb).sum(1), 0.0))
+    if rot.max() >= 2.0 or rmse_true.max() >= 0.1:
+        fail(f"quality gate: worst lane rot {rot.max():.3f} deg, rmse {rmse_true.max():.4f}")
+
+    ref_lanes = slice(0, 4)
+    T_cpu, _, _ = run_step(ref_lanes, device="cpu")
+    T_ref = T_cpu.double().numpy()
+    # ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2) for rotations: exact near 0.
+    fro = np.linalg.norm(T[ref_lanes, :3, :3] - T_ref[:, :3, :3], axis=(1, 2))
+    ref_rot = np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
+    ref_t = np.abs(T[ref_lanes, :3, 3] - T_ref[:, :3, 3]).max()
+    if ref_rot.max() >= 0.5 or ref_t >= 0.02:
+        fail(f"GPU and CPU runs of lanes 0-3 differ: rot {ref_rot.max():.4f} deg, t {ref_t:.4g}")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run_step()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    step_s = float(np.median(times))
+
+    # Stage times: the step's three stages, each ended by a synchronize.
+    def staged():
+        marks = [time.time()]
+        fc = _pn_center(tgt["points"], tgt["mask"])
+        sp_ = (src["points"] - fc[:, None]).contiguous()
+        tp_ = (tgt["points"] - fc[:, None]).contiguous()
+        qa, valid = mutual_correspondences(src["features"], tgt["features"], src["mask"],
+                                           tgt["mask"], tp_)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        Tr, _ = ransac_pair_step(sp_, qa, valid, bits, dist_thresh=cfg.ransac.dist_thresh,
+                                 iterations=HYPOTHESES, batch_size=HYPOTHESES, approx_score=True)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        icp_polish(Tr, sp_, src["mask"], tp_, tgt["mask"], tgt["normals"],
+                   icp_thresh=cfg.icp.dist_thresh, icp_iterations=ICP_ITERS,
+                   icp_solves_per_nn=ICP_SOLVES_PER_NN)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return np.diff(marks) * 1e3
+
+    stages = np.median(np.stack([staged() for _ in range(3)]), axis=0)
+    log(f"main path: {LANES} lanes ({PAIRS} pairs, cap {cap}), {HYPOTHESES} hypotheses, "
+        f"{ICP_ITERS} ICP iterations / {ICP_SOLVES_PER_NN} solves per search: "
+        f"step {step_s * 1e3:.1f} ms median of 3 -> {LANES / step_s:.1f} pairs/s "
+        f"(counted run {first_s * 1e3:.1f} ms); stages: correspondences {stages[0]:.1f} ms, "
+        f"ransac {stages[1]:.1f} ms, icp {stages[2]:.1f} ms; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"quality: worst lane rot {rot.max():.4f} deg, rmse {rmse_true.max():.5f}, "
+        f"fitness min {fit.min().item():.3f}, icp rmse max {rmse.max().item():.4f}; "
+        f"lanes 0-3 vs CPU: rot {ref_rot.max():.4f} deg, t {ref_t:.3g}; launches {launches}")
+
+    # Device timeline of one step (torch.profiler): busy share, and the device
+    # ops that take the time, summed by name.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log("profile: the profiler recorded no device ops; busy share not measured")
+    else:
+        busy, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
+        for s0, s1, name in spans:
+            by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
+            if s0 > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s0, s1
+            else:
+                cur_e = max(cur_e, s1)
+        busy += cur_e - cur_s
+        span = spans[-1][1] - spans[0][0]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        log(f"profile: {len(spans)} device ops over a {span / 1e3:.2f} ms device span, busy "
+            f"{busy / 1e3:.2f} ms ({busy / span:.1%}), idle {1 - busy / span:.1%}")
+        for name, us in top:
+            log(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
+
+    # --- 6. report --------------------------------------------------------
+    sources = {"lane_nn_smalld": ("tpu3dm_torch/csrc/lane_nn.cu",
+                                  "tpu3dm/ops/nn_lane.py:74"),
+               "lane_mutual": ("tpu3dm_torch/csrc/lane_mutual.cu",
+                               "tpu3dm/ops/nn_lane.py:135"),
+               "ransac_score": ("tpu3dm_torch/csrc/ransac_score.cu",
+                                "tpu3dm/ops/ransac_score.py:124")}
+    kernels = []
+    for name, r in results.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

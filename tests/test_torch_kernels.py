@@ -1,0 +1,180 @@
+"""tpu3dm_torch kernel wrappers: device dispatch, and each CUDA kernel held
+against its plain PyTorch version.
+
+This file imports neither JAX nor tpu3dm, so it also runs where only the
+port is installed.  The ``gpu`` tests need a CUDA device and nvcc and skip
+without them; on a card run
+``python -m pytest --noconftest tests/test_torch_kernels.py`` (the repo's
+conftest.py imports JAX).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu3dm_torch.core.se3 import exp_so3
+from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+from tpu3dm_torch.ops import nn_lane, ransac_score
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs the same checks on the card")
+    return torch.device("cuda")
+
+
+def test_wrappers_run_plain_on_cpu_without_launching():
+    reset_launch_counts()
+    x = torch.zeros(1, 8, 3)
+    nn_lane.nn_search_lane(x, x)
+    f = torch.rand(1, 8, 33)
+    nn_lane.nn_mutual_mask_lane(f, f)
+    ransac_score.score_features(torch.zeros(1, 4, 16), torch.zeros(1, 4),
+                                torch.zeros(1, 8, 16), torch.zeros(1, 8),
+                                torch.ones(1, 8, dtype=torch.bool), 1.0)
+    assert set(KERNELS) == {"lane_nn_smalld", "lane_mutual", "ransac_score"}
+    assert all(k.launches == 0 for k in KERNELS.values())
+
+
+def test_wrappers_reject_other_devices():
+    """Neither plain nor kernel for a tensor that is on neither the CPU nor
+    CUDA: the wrappers raise rather than fall back."""
+    x = torch.zeros(1, 8, 3, device="meta")
+    with pytest.raises(ValueError):
+        nn_lane.nn_search_lane(x, x)
+    f = torch.zeros(1, 8, 33, device="meta")
+    with pytest.raises(ValueError):
+        nn_lane.nn_mutual_mask_lane(f, f)
+    with pytest.raises(ValueError):
+        ransac_score.score_features(
+            torch.zeros(1, 4, 16, device="meta"), torch.zeros(1, 4, device="meta"),
+            torch.zeros(1, 8, 16, device="meta"), torch.zeros(1, 8, device="meta"),
+            torch.ones(1, 8, dtype=torch.bool, device="meta"), 1.0,
+        )
+
+
+def test_wrappers_check_shapes():
+    with pytest.raises(ValueError):
+        nn_lane.nn_search_lane(torch.zeros(8, 3), torch.zeros(8, 3))
+    with pytest.raises(NotImplementedError):
+        nn_lane.nn_search_lane(torch.zeros(1, 8, 16), torch.zeros(1, 8, 16))
+    with pytest.raises(ValueError):
+        ransac_score.score_features(torch.zeros(1, 4, 15), torch.zeros(1, 4),
+                                    torch.zeros(1, 8, 15), torch.zeros(1, 8),
+                                    torch.ones(1, 8, dtype=torch.bool), 1.0)
+
+
+def test_library_path_tracks_the_source(tmp_path, monkeypatch):
+    from tpu3dm_torch import csrc
+
+    path = csrc.library_path("lane_nn.cu")
+    assert path.parent == csrc.BUILD_DIR and path.name.startswith("lane_nn-")
+    assert path == csrc.library_path("lane_nn.cu")
+    (tmp_path / "lane_nn.cu").write_bytes((csrc.SRC_DIR / "lane_nn.cu").read_bytes() + b"\n")
+    monkeypatch.setattr(csrc, "SRC_DIR", tmp_path)
+    assert csrc.library_path("lane_nn.cu") != path  # an edited kernel is rebuilt
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    import torch.utils.cpp_extension as cpp
+
+    from tpu3dm_torch import csrc
+
+    monkeypatch.setattr(csrc, "library_path", lambda src: tmp_path / f"{src}.so")
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        csrc.build(["lane_nn.cu"])
+    assert csrc.build([]) == {}
+
+
+@pytest.mark.gpu
+def test_lane_nn_kernel_matches_plain(cuda_device):
+    """Same rounding order as the plain version: bit for bit."""
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(4, 300, 3)), dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.normal(size=(4, 2500, 3)), dtype=torch.float32, device=cuda_device)
+    tm = torch.tensor(rng.random((4, 2500)) > 0.2, device=cuda_device)
+    tm[3] = False  # a lane with every target masked: idx 0, d2 = BIG in both
+    before = KERNELS["lane_nn_smalld"].launches
+    d2k, idxk = nn_lane.nn_search_lane(q, t, None, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(q, t, None, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_nn_smalld"].launches == before + 1
+    assert torch.equal(idxk, idxp)
+    assert torch.equal(d2k, d2p)
+
+
+@pytest.mark.gpu
+def test_lane_mutual_kernel_matches_plain(cuda_device):
+    """The kernel's dot product is an fmaf chain, the plain one a matmul:
+    picks may differ only at near-ties (>= 99.9% agree)."""
+    rng = np.random.default_rng(1)
+    a = torch.tensor(rng.normal(size=(3, 300, 33)), dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.normal(size=(3, 260, 33)), dtype=torch.float32, device=cuda_device)
+    ma = torch.tensor(rng.random((3, 300)) > 0.1, device=cuda_device)
+    mb = torch.tensor(rng.random((3, 260)) > 0.1, device=cuda_device)
+    idxk, mutk = nn_lane.nn_mutual_mask_lane(a, b, ma, mb)
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(a, b, ma, mb)
+    torch.cuda.synchronize()
+    assert (idxk == idxp).float().mean() >= 0.999
+    assert (mutk == mutp).float().mean() >= 0.999
+    assert mutk.any()
+
+
+@pytest.mark.gpu
+def test_ransac_score_kernel_matches_plain(cuda_device):
+    """Counts equal on >= 99.9% of hypotheses and never more than 1 apart (a
+    distance within rounding of the threshold)."""
+    rng = np.random.default_rng(2)
+    R = exp_so3(torch.tensor(rng.normal(size=(700, 3)) * 0.3, dtype=torch.float32))
+    t = torch.tensor(rng.normal(size=(700, 3)) * 0.2, dtype=torch.float32)
+    p = torch.tensor(rng.normal(size=(1300, 3)), dtype=torch.float32)
+    q = p + torch.tensor(rng.normal(size=(1300, 3)) * 0.3, dtype=torch.float32)
+    F, c = ransac_score.corres_features(p[None].to(cuda_device), q[None].to(cuda_device))
+    H, e = ransac_score.hypothesis_features(R[None].to(cuda_device), t[None].to(cuda_device))
+    m = torch.tensor(rng.random((1, 1300)) > 0.15, device=cuda_device)
+    thr = float(np.float32(0.6) ** 2)
+    ck = ransac_score.score_features(H.contiguous(), e, F.contiguous(), c, m, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, m, thr)
+    torch.cuda.synchronize()
+    diff = (ck - cp).abs()
+    assert diff.max() <= 1 and (diff == 0).float().mean() >= 0.999
+    assert ck.max() > 0
+
+
+@pytest.mark.gpu
+def test_fused_register_step_cuda_matches_cpu(cuda_device):
+    """The whole slice on the card against the plain versions on the CPU,
+    same inputs and sample bits: same poses (rotation within 0.05 deg)."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.fused import fused_register_step
+    from tpu3dm_torch.registration.hypotheses import sample_row_count
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    sp, tp, T_true = make_benchmark_pair(8000, seed=3, sigma=0.01)
+    s = preprocess_points(sp, cfg.preprocess, device="cpu").down
+    t = preprocess_points(tp, cfg.preprocess, device="cpu").down
+    B, K = 2, 1024
+    args = [x[None].expand(B, *x.shape) for c in (s, t)
+            for x in (c.points, c.features, c.mask, c.normals)]
+    bits = draw_sample_bits(B, 1, sample_row_count(s.capacity, K),
+                            torch.Generator().manual_seed(1))
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=K, ransac_batch=K, icp_iterations=8, icp_solves_per_nn=4,
+              approx_score=True)
+    before = {n: k.launches for n, k in KERNELS.items()}
+    Tg, fg, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, **kw)
+    Tc, fc, _ = fused_register_step(*args, bits, device="cpu", **kw)
+    torch.cuda.synchronize()
+    assert all(KERNELS[n].launches > before[n] for n in KERNELS)
+    Tg, Tc = Tg.cpu().double(), Tc.double()
+    fro = torch.linalg.matrix_norm(Tg[:, :3, :3] - Tc[:, :3, :3])
+    assert torch.rad2deg(2 * torch.asin(fro / (2 * 2 ** 0.5))).max() < 0.05
+    assert (Tg[:, :3, 3] - Tc[:, :3, 3]).abs().max() < 5e-3
+    M = Tg[:, :3, :3].numpy() @ T_true[:3, :3].T
+    rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    assert rot.max() < 2.0

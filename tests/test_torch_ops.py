@@ -1,0 +1,215 @@
+"""Port parity for the kernel modules of tpu3dm_torch (CPU, small shapes).
+
+The same numpy inputs go through the JAX function (Pallas kernels in
+interpret mode, as tests/test_ops.py runs them) and through the port's
+wrapper, which on CPU tensors runs its plain PyTorch version.  The CUDA
+kernels themselves are held against those plain versions in
+tests/test_torch_kernels.py (``gpu`` tests, which skip without a card) and
+by chip_smoke.py at the main path's shapes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu3dm.ops import nn as jnn
+from tpu3dm.ops import nn_lane as jlane
+from tpu3dm.ops import ransac_score as jscore
+from tpu3dm.registration import hypotheses as jhyp
+from tpu3dm_torch.ops import nn_lane, ransac_score
+from tpu3dm_torch.registration import hypotheses as phyp
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # The suite runs under several xdist workers; one intra-op thread each.
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: 3-D NN per lane (tolerance: idx exact; d2 1e-4 absolute, the
+# lane kernels' own test bound — both sides compute the direct sum of squares)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,nt", [(256, 256), (200, 300), (37, 129)])
+def test_nn_search_lane_matches_jax(nq, nt):
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(nq, 3)).astype(np.float32)
+    t = rng.normal(size=(nt, 3)).astype(np.float32)
+    tmask = rng.random(nt) > 0.2
+    d2l, idxl = jlane.nn_search_lane(jnp.asarray(q), jnp.asarray(t), None, jnp.asarray(tmask),
+                                     interpret=True)
+    d2d, idxd = jnn.nn_search_dense(jnp.asarray(q), jnp.asarray(t), None, jnp.asarray(tmask))
+    d2p, idxp = nn_lane.nn_search_lane(_t(q)[None], _t(t)[None], None, _t(tmask)[None])
+    assert idxp.dtype == torch.int32 and d2p.dtype == torch.float32
+    np.testing.assert_array_equal(idxp[0].numpy(), np.asarray(idxl))
+    np.testing.assert_array_equal(idxp[0].numpy(), np.asarray(idxd))
+    np.testing.assert_allclose(d2p[0].numpy(), np.asarray(d2l), atol=1e-4)
+    np.testing.assert_allclose(d2p[0].numpy(), np.asarray(d2d), atol=1e-4)
+
+
+def test_nn_search_lane_batched_matches_jax_vmap():
+    rng = np.random.default_rng(5)
+    B, m, n = 3, 128, 200
+    q = rng.normal(size=(B, m, 3)).astype(np.float32)
+    t = rng.normal(size=(B, n, 3)).astype(np.float32)
+    tm = rng.random((B, n)) > 0.2
+    d2l, idxl = jax.vmap(lambda a, b, c: jlane.nn_search_lane(a, b, None, c, interpret=True))(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(tm)
+    )
+    d2p, idxp = nn_lane.nn_search_lane(_t(q), _t(t), None, _t(tm))
+    np.testing.assert_array_equal(idxp.numpy(), np.asarray(idxl))
+    np.testing.assert_allclose(d2p.numpy(), np.asarray(d2l), atol=1e-4)
+
+
+def test_nn_search_lane_ties_go_to_smaller_index():
+    t = np.array([[0, 0, 1], [0, 0, -1], [0, 0, 1], [5, 5, 5]], np.float32)
+    q = np.zeros((2, 3), np.float32)
+    d2, idx = nn_lane.nn_search_lane(_t(q)[None], _t(t)[None])
+    np.testing.assert_array_equal(idx[0].numpy(), [0, 0])
+    np.testing.assert_allclose(d2[0].numpy(), [1.0, 1.0])
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: mutual 33-D NN per lane (idx and mutual exact on random features:
+# a tie within an ulp has probability ~0 at these sizes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("na,nb", [(384, 512), (100, 70)])
+def test_nn_mutual_mask_lane_matches_jax(na, nb):
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(na, 33)).astype(np.float32)
+    b = rng.normal(size=(nb, 33)).astype(np.float32)
+    ma = rng.random(na) > 0.1
+    mb = rng.random(nb) > 0.1
+    idxl, mutl = jlane.nn_mutual_mask_lane(jnp.asarray(a), jnp.asarray(b), jnp.asarray(ma),
+                                           jnp.asarray(mb), interpret=True)
+    idxp, mutp = nn_lane.nn_mutual_mask_lane(_t(a)[None], _t(b)[None], _t(ma)[None], _t(mb)[None])
+    np.testing.assert_array_equal(idxp[0].numpy(), np.asarray(idxl))
+    np.testing.assert_array_equal(mutp[0].numpy(), np.asarray(mutl))
+    assert mutp[0].sum() > 0
+
+
+def test_nn_mutual_mask_lane_batched_matches_jax_vmap():
+    rng = np.random.default_rng(5)
+    B, m, n = 3, 128, 256
+    f = rng.normal(size=(B, m, 33)).astype(np.float32)
+    g = rng.normal(size=(B, n, 33)).astype(np.float32)
+    fm = rng.random((B, m)) > 0.1
+    gm = rng.random((B, n)) > 0.1
+    idxl, mutl = jax.vmap(
+        lambda a, b, c, d: jlane.nn_mutual_mask_lane(a, b, c, d, interpret=True)
+    )(jnp.asarray(f), jnp.asarray(g), jnp.asarray(fm), jnp.asarray(gm))
+    idxp, mutp = nn_lane.nn_mutual_mask_lane(_t(f), _t(g), _t(fm), _t(gm))
+    np.testing.assert_array_equal(idxp.numpy(), np.asarray(idxl))
+    np.testing.assert_array_equal(mutp.numpy(), np.asarray(mutl))
+
+
+def test_nn_mutual_mask_lane_approx_is_fp32():
+    """``approx`` is accepted and ignored, as by the TPU kernel: the result is
+    the exact fp32 one."""
+    rng = np.random.default_rng(6)
+    a = (np.abs(rng.normal(size=(1, 200, 33))) * 50).astype(np.float32)
+    b = (np.abs(rng.normal(size=(1, 180, 33))) * 50).astype(np.float32)
+    idx0, mut0 = nn_lane.nn_mutual_mask_lane(_t(a), _t(b))
+    idx1, mut1 = nn_lane.nn_mutual_mask_lane(_t(a), _t(b), approx=True)
+    idxj, mutj = jnn.nn_mutual_mask(jnp.asarray(a[0]), jnp.asarray(b[0]), approx=False)
+    np.testing.assert_array_equal(idx1.numpy(), idx0.numpy())
+    np.testing.assert_array_equal(mut1.numpy(), mut0.numpy())
+    np.testing.assert_array_equal(idx1[0].numpy(), np.asarray(idxj))
+    np.testing.assert_array_equal(mut1[0].numpy(), np.asarray(mutj))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: RANSAC score (counts exact on tie-free fp32 inputs)
+# ---------------------------------------------------------------------------
+
+
+def _random_hypotheses(rng, k, n):
+    from tpu3dm.core.se3 import exp_so3
+
+    w = rng.normal(size=(k, 3)).astype(np.float32) * 0.3
+    R = np.asarray(exp_so3(jnp.asarray(w)))
+    t = (rng.normal(size=(k, 3)) * 0.2).astype(np.float32)
+    p = rng.normal(size=(n, 3)).astype(np.float32)
+    q = (p + rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    mask = rng.random(n) > 0.15
+    return R, t, p, q, mask
+
+
+@pytest.mark.parametrize("k,n", [(256, 384), (300, 257)])
+def test_score_matches_jax_pallas_and_xla(k, n):
+    rng = np.random.default_rng(7)
+    R, t, p, q, mask = _random_hypotheses(rng, k, n)
+    thr = float(np.float32(0.6) ** 2)
+    args = tuple(jnp.asarray(x) for x in (R, t, p, q, mask))
+    c_pl = jscore.score_hypotheses_pallas(*args, thr, tile_k=128, tile_n=128, interpret=True)
+    c_x = jscore.score_hypotheses_xla(*args, thr)
+    F, c = ransac_score.corres_features(_t(p)[None], _t(q)[None])
+    H, e = ransac_score.hypothesis_features(_t(R)[None], _t(t)[None])
+    counts = ransac_score.score_features(H, e, F, c, _t(mask)[None], thr)
+    assert counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts[0].numpy(), np.asarray(c_pl))
+    np.testing.assert_array_equal(counts[0].numpy(), np.asarray(c_x))
+    dense = ransac_score.score_hypotheses_dense(_t(R), _t(t), _t(p), _t(q), _t(mask), thr)
+    np.testing.assert_array_equal(dense.numpy(), np.asarray(c_x))
+    assert 0 < counts.min() and counts.max() < mask.sum()
+
+
+def _arch_correspondences(n=512, seed=0):
+    """Correspondences of a moved arch with 40% outliers, centred."""
+    from tpu3dm_torch.io.synthetic import dental_arch_cloud
+
+    rng = np.random.default_rng(seed)
+    p = dental_arch_cloud(n, seed=seed).astype(np.float32)
+    p -= p.mean(0)
+    th = 0.4
+    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]], np.float32)
+    q = p @ R.T + np.float32([0.3, -0.2, 0.1])
+    out = rng.random(n) < 0.4
+    q[out] = rng.normal(size=(out.sum(), 3)).astype(np.float32) * 2
+    q += rng.normal(size=q.shape).astype(np.float32) * 0.01
+    return p, q.astype(np.float32), rng.random(n) > 0.05
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_fit_score_gathers_matches_jax(approx):
+    """The whole hypothesis chunk, fp32 and with the bf16-rounded score
+    (JAX: bf16-in, fp32-accumulate dot).  Counts may differ only where a
+    distance sits within rounding of the threshold: at most 1 count, on at
+    most 1% of hypotheses; the fits agree to 1e-5."""
+    p, q, valid = _arch_correspondences()
+    rng = np.random.default_rng(1)
+    kk = 512
+    tri = rng.integers(0, p.shape[0], size=(kk, 3))
+    pq = np.concatenate([p, q], 1)
+    ga, gb, gc = pq[tri[:, 0]], pq[tri[:, 1]], pq[tri[:, 2]]
+    thr = float(np.float32(0.45) ** 2)
+    Fj, cj = jscore.corres_features(jnp.asarray(p), jnp.asarray(q))
+    Rj, tj, cnt_j = jhyp.fit_score_gathers(
+        jnp.asarray(ga), jnp.asarray(gb), jnp.asarray(gc), Fj, cj, jnp.asarray(valid), thr,
+        approx_score=approx,
+    )
+    F, c = ransac_score.corres_features(_t(p)[None], _t(q)[None])
+    Rp, tp, cnt_p = phyp.fit_score_gathers(
+        _t(ga)[None], _t(gb)[None], _t(gc)[None], F, c, _t(valid)[None], thr,
+        approx_score=approx,
+    )
+    for i in range(3):
+        np.testing.assert_allclose(tp[i][0].numpy(), np.asarray(tj[i]), atol=1e-5)
+        for j in range(3):
+            np.testing.assert_allclose(Rp[i][j][0].numpy(), np.asarray(Rj[i][j]), atol=1e-5)
+    diff = np.abs(cnt_p[0].numpy().astype(np.int64) - np.asarray(cnt_j))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+    assert (np.asarray(cnt_j) > 50).any()  # some all-inlier hypotheses exist

@@ -1,0 +1,98 @@
+"""Package rules of tpu3dm_torch: no JAX, lazy kernels, no quiet CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "tpu3dm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "tpu3dm"}, roots
+
+
+def test_import_needs_no_triton_nvcc_or_gpu():
+    """Every module imports in a process where triton cannot be imported and
+    nvcc cannot be found, and importing loads no JAX and builds nothing."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['triton'] = None\n"
+        "import tpu3dm_torch\n"
+        "for m in pkgutil.walk_packages(tpu3dm_torch.__path__, 'tpu3dm_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from tpu3dm_torch.csrc import KERNELS\n"
+        "assert set(KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score'}, KERNELS\n"
+        "assert all(k._fn is None for k in KERNELS.values())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu3dm')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """device=None means CUDA; without it an entry point raises instead of
+    running on the CPU."""
+    from tpu3dm_torch import resolve_device
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.fused import fused_register_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preprocess_points(np.random.default_rng(0).normal(size=(100, 3)))
+    z3 = np.zeros((1, 8, 3), np.float32)
+    f = np.zeros((1, 8, 33), np.float32)
+    m = np.ones((1, 8), bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_register_step(z3, f, m, z3, z3, f, m, z3)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_precision_is_full_fp32():
+    import tpu3dm_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _run_chip_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def test_chip_smoke_fails_without_gpu():
+    out = _run_chip_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = _run_chip_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

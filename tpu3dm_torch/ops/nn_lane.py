@@ -1,0 +1,163 @@
+"""Per-pair-lane NN searches on hand-written CUDA kernels (port of tpu3dm/ops/nn_lane.py).
+
+Two wrappers with the JAX contracts, batched over a leading pair dimension:
+
+  - ``nn_search_lane``: top-1 3-D nearest neighbour (kernel
+    csrc/lane_nn.cu, replacing ``_lane_nn_smalld_kernel``) — the ICP search;
+  - ``nn_mutual_mask_lane``: forward 33-D NN plus the mutuality test against
+    GLOBAL column minima (kernel csrc/lane_mutual.cu, replacing
+    ``_lane_mutual_kernel``) — the FPFH correspondence stage.
+
+A wrapper given CPU tensors runs the plain PyTorch version (ops/nn.py,
+chunked over the pair dimension); given CUDA tensors it launches its kernel
+or raises.  There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype, dispatch
+from tpu3dm_torch.ops.nn import (
+    BIG,
+    SMALL_D_MAX,
+    lane_slices,
+    nn_mutual_mask,
+    nn_search_dense,
+)
+
+LANE_NN = Kernel(
+    "lane_nn_smalld", "lane_nn.cu", "t3t_lane_nn_smalld",
+    [PTR, PTR, PTR, PTR, PTR, INT, INT, INT],
+)
+LANE_MUTUAL = Kernel(
+    "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual",
+    [PTR] * 8 + [INT, INT, INT],
+)
+FPFH_DIM = 33  # the mutual kernel's feature width
+
+
+def _check_batched(where: str, x: torch.Tensor, y: torch.Tensor) -> None:
+    if x.ndim != 3 or y.ndim != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
+        raise ValueError(f"{where}: expected [B, M, d] and [B, N, d], got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+
+
+def nn_search_lane_plain(query, target, query_mask=None, target_mask=None):
+    """Plain PyTorch version of ``nn_search_lane`` (any device)."""
+    b, m, n = query.shape[0], query.shape[1], target.shape[1]
+    d2s, idxs = [], []
+    for s in lane_slices(b, m * n):
+        d2, idx = nn_search_dense(
+            query[s], target[s], None, None if target_mask is None else target_mask[s]
+        )
+        d2s.append(d2)
+        idxs.append(idx)
+    return torch.cat(d2s), torch.cat(idxs)
+
+
+def nn_search_lane(
+    query: torch.Tensor,
+    target: torch.Tensor,
+    query_mask: torch.Tensor | None = None,
+    target_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-1 3-D NN per pair lane (the JAX ``nn_search`` contract, batched).
+
+    Args:
+      query: [B, M, 3] float32; target: [B, N, 3] float32.
+      query_mask: ignored (masked queries get arbitrary results, as in JAX).
+      target_mask: [B, N] bool or None; masked targets never win.
+
+    Returns (d2 [B, M] float32, idx [B, M] int32), ties to the smaller index.
+    """
+    del query_mask
+    _check_batched("nn_search_lane", query, target)
+    if query.shape[-1] >= SMALL_D_MAX:
+        raise NotImplementedError(
+            "nn_search_lane: d >= 8 (the TPU's _lane_nn_mxu_kernel) is not ported"
+        )
+    if dispatch("nn_search_lane", query, target, target_mask) == "cpu":
+        return nn_search_lane_plain(query, target, None, target_mask)
+    b, m, n = query.shape[0], query.shape[1], target.shape[1]
+    if target_mask is None:
+        bias = torch.zeros((b, n), dtype=torch.float32, device=query.device)
+    else:
+        bias = torch.where(target_mask, 0.0, BIG).to(torch.float32)
+    d2 = torch.empty((b, m), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, m), dtype=torch.int32, device=query.device)
+    where = "nn_search_lane"
+    check_dtype(where, torch.float32, query=query, target=target)
+    dev = check_cuda_tensors(where, b, query=query, target=target, bias=bias, d2=d2, idx=idx)
+    LANE_NN.launch(
+        dev, query.data_ptr(), target.data_ptr(), bias.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), b, m, n,
+    )
+    return d2, idx
+
+
+def nn_mutual_lane_plain(a, b, mask_a=None, mask_b=None):
+    """Plain PyTorch version of ``nn_mutual_mask_lane`` (any device)."""
+    nb, na, nbt = a.shape[0], a.shape[1], b.shape[1]
+    idxs, muts = [], []
+    for s in lane_slices(nb, na * nbt):
+        idx, mut = nn_mutual_mask(
+            a[s], b[s],
+            None if mask_a is None else mask_a[s],
+            None if mask_b is None else mask_b[s],
+        )
+        idxs.append(idx)
+        muts.append(mut)
+    return torch.cat(idxs), torch.cat(muts)
+
+
+def nn_mutual_mask_lane(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    mask_a: torch.Tensor | None = None,
+    mask_b: torch.Tensor | None = None,
+    *,
+    approx: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward NN + mutuality mask per pair lane (the JAX ``nn_mutual_mask``
+    contract, batched).
+
+    Args:
+      a: [B, Na, 33] float32 query features; b: [B, Nb, 33] target features.
+      mask_a, mask_b: [B, Na] / [B, Nb] bool or None.
+      approx: accepted for API parity and ignored; the computation is fp32,
+        as the TPU kernel's is.
+
+    Returns (idx_fwd [B, Na] int32, mutual [B, Na] bool).  On exact ties
+    every tying row passes the mutuality test.
+    """
+    del approx
+    _check_batched("nn_mutual_mask_lane", a, b)
+    if dispatch("nn_mutual_mask_lane", a, b, mask_a, mask_b) == "cpu":
+        return nn_mutual_lane_plain(a, b, mask_a, mask_b)
+    where = "nn_mutual_mask_lane"
+    if a.shape[-1] != FPFH_DIM:
+        raise NotImplementedError(f"{where}: the kernel takes d = {FPFH_DIM}, got {a.shape[-1]}")
+    nl, na, nb = a.shape[0], a.shape[1], b.shape[1]
+    asq = torch.sum(a * a, dim=-1)
+    bsq = torch.sum(b * b, dim=-1)
+    if mask_a is not None:
+        asq = torch.where(mask_a, asq, BIG)
+    if mask_b is not None:
+        bsq = torch.where(mask_b, bsq, BIG)
+    colmin = torch.empty((nl, nb), dtype=torch.float32, device=a.device)
+    d2 = torch.empty((nl, na), dtype=torch.float32, device=a.device)
+    idx = torch.empty((nl, na), dtype=torch.int32, device=a.device)
+    colb = torch.empty((nl, na), dtype=torch.float32, device=a.device)
+    check_dtype(where, torch.float32, a=a, b=b)
+    dev = check_cuda_tensors(
+        where, nl, a=a, b=b, asq=asq, bsq=bsq, colmin=colmin, d2=d2, idx=idx, colb=colb
+    )
+    LANE_MUTUAL.launch(
+        dev, a.data_ptr(), b.data_ptr(), asq.data_ptr(), bsq.data_ptr(),
+        colmin.data_ptr(), d2.data_ptr(), idx.data_ptr(), colb.data_ptr(), nl, na, nb,
+    )
+    mutual = d2 <= colb
+    if mask_a is not None:
+        mutual = mutual & mask_a
+    return idx, mutual

@@ -1,0 +1,113 @@
+"""Batched RANSAC hypothesis scoring (port of tpu3dm/ops/ransac_score.py).
+
+For hypothesis k (R_k, t_k) and correspondence n (p_n, q_n),
+
+    |R_k p_n + t_k - q_n|^2 = (|p_n|^2 + |q_n|^2) + |t_k|^2
+        + [p_n, vec(q_n p_n^T), q_n, 0] . [2 R_k^T t_k, -2 vec(R_k), -2 t_k, 0]
+
+a rank-15 bilinear form: F [N, 16] per correspondence, H [K, 16] per
+hypothesis.  ``score_features`` counts inliers from those features; on CUDA
+it launches csrc/ransac_score.cu (replacing the TPU's ``_score_kernel``),
+which never builds the [B, K, N] distance tensor (34 GB in fp32 at B=2048,
+K=4096, N=1024).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu3dm_torch.csrc import (
+    FLOAT,
+    INT,
+    PTR,
+    Kernel,
+    check_cuda_tensors,
+    check_dtype,
+    dispatch,
+)
+from tpu3dm_torch.ops.nn import lane_slices
+
+FEAT_DIM = 16  # 15 used + 1 zero pad
+RANSAC_SCORE = Kernel(
+    "ransac_score", "ransac_score.cu", "t3t_ransac_score",
+    [PTR, PTR, PTR, PTR, PTR, FLOAT, PTR, INT, INT, INT],
+)
+
+
+def corres_features(p: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(F [..., N, 16], c [..., N]): F = [p, vec(q p^T), q, 0], c = |p|^2 + |q|^2."""
+    outer = (q[..., :, None] * p[..., None, :]).reshape(p.shape[:-1] + (9,))
+    pad = torch.zeros(p.shape[:-1] + (1,), dtype=p.dtype, device=p.device)
+    F = torch.cat([p, outer, q, pad], dim=-1)
+    c = torch.sum(p * p, dim=-1) + torch.sum(q * q, dim=-1)
+    return F, c
+
+
+def hypothesis_features(R: torch.Tensor, t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(H [..., K, 16], e [..., K]) from R [..., K, 3, 3], t [..., K, 3]:
+    H = [2 R^T t, -2 vec(R), -2 t, 0], e = |t|^2."""
+    Rt_t = torch.einsum("...ij,...i->...j", R, t)
+    H = torch.cat(
+        [2.0 * Rt_t, -2.0 * R.reshape(R.shape[:-2] + (9,)), -2.0 * t, torch.zeros_like(t[..., :1])],
+        dim=-1,
+    )
+    e = torch.sum(t * t, dim=-1)
+    return H, e
+
+
+def score_features_plain(H, e, F, c, mask, thresh_sq: float) -> torch.Tensor:
+    """Plain PyTorch version of ``score_features`` (any device), chunked over
+    pair lanes so the dense [b, K, N] block stays small."""
+    b, k, n = H.shape[0], H.shape[1], F.shape[1]
+    out = []
+    for s in lane_slices(b, k * n):
+        d2 = H[s] @ F[s].transpose(-1, -2) + c[s][:, None, :] + e[s][:, :, None]
+        hits = (d2 < thresh_sq) & mask[s][:, None, :]
+        out.append(torch.sum(hits, dim=-1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def score_features(
+    H: torch.Tensor,
+    e: torch.Tensor,
+    F: torch.Tensor,
+    c: torch.Tensor,
+    mask: torch.Tensor,
+    thresh_sq: float,
+) -> torch.Tensor:
+    """Inlier counts [B, K] int32: #{n : (H_k . F_n + c_n) + e_k < thresh_sq, mask_n}.
+
+    Args:
+      H: [B, K, 16], e: [B, K], F: [B, N, 16], c: [B, N] float32.
+      mask: [B, N] bool.
+      thresh_sq: squared inlier threshold (an fp32 value).
+    """
+    where = "score_features"
+    if H.ndim != 3 or F.ndim != 3 or H.shape[-1] != FEAT_DIM or F.shape[-1] != FEAT_DIM:
+        raise ValueError(f"{where}: expected H [B, K, 16] and F [B, N, 16], got "
+                         f"{tuple(H.shape)} and {tuple(F.shape)}")
+    b, k, n = H.shape[0], H.shape[1], F.shape[1]
+    if F.shape[0] != b or e.shape != (b, k) or c.shape != (b, n) or mask.shape != (b, n):
+        raise ValueError(f"{where}: e {tuple(e.shape)}, c {tuple(c.shape)} or "
+                         f"mask {tuple(mask.shape)} do not match H and F")
+    if dispatch(where, H, e, F, c, mask) == "cpu":
+        return score_features_plain(H, e, F, c, mask, thresh_sq)
+    check_dtype(where, torch.float32, H=H, e=e, F=F, c=c)
+    check_dtype(where, torch.bool, mask=mask)
+    counts = torch.empty((b, k), dtype=torch.int32, device=H.device)
+    dev = check_cuda_tensors(where, b, H=H, e=e, F=F, c=c, mask=mask, counts=counts)
+    RANSAC_SCORE.launch(
+        dev, H.data_ptr(), e.data_ptr(), F.data_ptr(), c.data_ptr(), mask.data_ptr(),
+        float(thresh_sq), counts.data_ptr(), b, k, n,
+    )
+    return counts
+
+
+def score_hypotheses_dense(R, t, p, q, mask, dist_thresh_sq: float) -> torch.Tensor:
+    """Inlier counts [..., K] int32 with the [..., K, N] distance matrix
+    materialized (the JAX ``score_hypotheses_dense``)."""
+    F, c = corres_features(p, q)
+    H, e = hypothesis_features(R, t)
+    d2 = H @ F.transpose(-1, -2) + c[..., None, :] + e[..., :, None]
+    hits = (d2 < dist_thresh_sq) & mask[..., None, :]
+    return torch.sum(hits, dim=-1, dtype=torch.int32)
