@@ -22,7 +22,25 @@ Phases (any failure exits non-zero and prints no ok line):
      after; every lane gated (rotation < 2 deg, RMSE < 0.1 against its
      T_true); 4 lanes checked against the same step on the CPU; pairs/s
      and stage times;
-  6. one JSON line of per-kernel numbers, then the ok line, last.
+  6. one profiled step: the device's busy and idle share, ops by name;
+  7. the large-cloud path, register_arrays_large on make_benchmark_pair(
+     1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
+     voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
+     counts zeroed just before and read just after each call, each call
+     gated as bench.py gates it (rotation < 2 deg, alignment RMSE < 0.01
+     against T_true), then once more stage by stage; one profiled call of A;
+  8. kernels 3-6 against their plain versions at those paths' shapes: the
+     fp32 RANSAC score of B's first hypothesis chunk (one lane, 4096
+     hypotheses, its correspondences, no bf16 rounding), the tiled 3-D search
+     at 1,000,448 x 1024 (A's donor normals) and 8192 x 8192 (B's
+     downsampled ICP), the tiled 33-D search at 8192 x 8192 (B's FPFH), the
+     block-sparse search at 1,000,448 x 1,000,448 with the candidate table of
+     A's first full-resolution ICP iteration;
+  9. path A at 40,000 points on the card and on the CPU (plain versions)
+     with the same sample bits: rotation within 0.5 deg, translation 0.02;
+ 10. one JSON line of per-kernel numbers (launches: kernels 1-3 from the
+     fused step's counted call, 4-6 from path B's warm call), then the ok
+     line, last.
 """
 
 from __future__ import annotations
@@ -41,13 +59,38 @@ HYPOTHESES = 4096
 ICP_ITERS = 8
 ICP_SOLVES_PER_NN = 4
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
-# bandwidth; fp32 outside the tensor cores, which counts an FMA as two flops,
-# so an add or a compare issues at half that rate; bf16 tensor cores with
-# fp32 accumulation.
+# bandwidth; fp32 outside the tensor cores, 67 TFLOP/s counting an FMA as two
+# flops, so fp32 instructions (an FMA, an add, a multiply, a subtraction each
+# one) issue at half that rate; bf16 tensor cores with fp32 accumulation.
 PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
 PEAK_BF16_FLOPS = 989e12
+
+
+# Kernel -> (its CUDA source, the TPU kernel it replaces).
+SOURCES = {
+    "lane_nn_smalld": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:74"),
+    "lane_mutual": ("tpu3dm_torch/csrc/lane_mutual.cu", "tpu3dm/ops/nn_lane.py:135"),
+    "ransac_score": ("tpu3dm_torch/csrc/ransac_score.cu", "tpu3dm/ops/ransac_score.py:124"),
+    "nn_tiled_smalld": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:138"),
+    "nn_tiled_wide": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:169"),
+    "nn_blocksparse": ("tpu3dm_torch/csrc/nn_blocksparse.cu", "tpu3dm/ops/nn_sparse.py:199"),
+}
+FUSED_KERNELS = ("lane_nn_smalld", "lane_mutual", "ransac_score")
+LARGE_KERNELS = ("nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")
+
+# The large-cloud path: bench.py's large phase (make_benchmark_pair(1M, seed=0,
+# sigma=0.002), block 512, w 8, 4 restarts, point-to-plane) at two voxel
+# sizes, each with the kernels it must launch; its gate is bench.py's.
+LARGE_POINTS = 1_000_000
+LARGE_PATHS = (
+    ("A", 0.3, ("ransac_score", "nn_tiled_smalld", "nn_blocksparse")),
+    ("B", 0.1, ("ransac_score", "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")),
+)
+LARGE_GATE_ROT_DEG = 2.0
+LARGE_GATE_RMSE = 0.01
+AGREE_POINTS = 40_000  # path A on the card against the CPU, same sample bits
 
 
 def log(msg: str) -> None:
@@ -56,6 +99,60 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and, for each (operations,
+    peak rate) of ``work``, operations over that rate."""
+    times = [n_bytes / PEAK_HBM_BYTES] + [ops / rate for ops, rate in work]
+    return max(times) * 1e3, ("bytes" if times[0] >= max(times) else "operations")
+
+
+def profile_report(fn, label: str) -> None:
+    """One profiled call of ``fn`` (torch.profiler): device busy and idle share
+    of its device span, and the device ops that take the time, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log(f"profile {label}: the profiler recorded no device ops; busy share not measured")
+        return
+    busy, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
+    for s0, s1, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, s1
+        else:
+            cur_e = max(cur_e, s1)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log(f"profile {label}: {len(spans)} device ops over a {span / 1e3:.2f} ms device span, "
+        f"busy {busy / 1e3:.2f} ms ({busy / span:.1%}), idle {1 - busy / span:.1%}")
+    for name, us in top:
+        log(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
 
 
 def main() -> int:
@@ -158,23 +255,6 @@ def main() -> int:
     # so each lane gets its own jitter and drops its own ~5% of points: a
     # kernel that reads another lane's data then disagrees with its plain
     # version.
-    def cuda_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def bound_ms(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
-        """The larger of bytes over the memory rate and, for each (operations,
-        peak rate) of ``work``, operations over that rate."""
-        times = [n_bytes / PEAK_HBM_BYTES] + [ops / rate for ops, rate in work]
-        return max(times) * 1e3, ("bytes" if times[0] >= max(times) else "operations")
-
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def jitter(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -205,16 +285,16 @@ def main() -> int:
     far = torch.where(tm[..., None], tp, torch.full_like(tp, 1e9))
     b, m, n = q.shape
     nq, nt = lane_counts(sm), lane_counts(tm)
-    # Needed work: valid queries x valid targets, 9 flops each (3 subtractions,
-    # 3 squares summed, + bias); bytes: valid rows, the target mask, and d2 and
-    # idx of every query.
+    # Needed work: valid queries x valid targets, 9 fp32 instructions each (3
+    # subtractions, 3 squares, 3 adds: bias first); bytes: valid rows, the
+    # target mask, and d2 and idx of every query.
     results["lane_nn_smalld"] = dict(
         agree=idx_agree, max_abs_err=d2_err,
         ms=cuda_ms(lambda: nn_lane.nn_search_lane(q, tp, sm, tm), 10),
         plain_ms=cuda_ms(lambda: nn_lane.nn_search_lane_plain(q, tp, sm, tm), 2),
         library_ms=cuda_ms(lambda: torch.cdist(q, far).argmin(-1), 2),
         bound=bound_ms(12 * (nq.sum() + nt.sum()).item() + b * n + 8 * b * m,
-                       (9.0 * (nq * nt).sum().item(), PEAK_FP32_FLOPS)),
+                       (9.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
     )
     del d2k, idxk, d2p, idxp, far
 
@@ -240,16 +320,16 @@ def main() -> int:
         return d.amin(-1) <= torch.gather(d.amin(-2), -1, idx)
 
     na, nb = fa.shape[1], fb.shape[1]
-    # Needed work: valid rows x valid columns, 68 flops each (33 FMAs, the
-    # norms' add, the -2 scale); bytes: valid feature rows, both masks, and
-    # idx and mutual of every row.
+    # Needed work: valid rows x valid columns, 35 fp32 instructions each (33
+    # FMAs, the norms' add, the -2 scale); bytes: valid feature rows, both
+    # masks, and idx and mutual of every row.
     results["lane_mutual"] = dict(
         agree=agree, max_abs_err=mut_err,
         ms=cuda_ms(lambda: nn_lane.nn_mutual_mask_lane(fa, fb, sm, tm), 5),
         plain_ms=cuda_ms(lambda: nn_lane.nn_mutual_lane_plain(fa, fb, sm, tm), 2),
         library_ms=cuda_ms(mutual_library, 2),
         bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
-                       (68.0 * (nq * nt).sum().item(), PEAK_FP32_FLOPS)),
+                       (35.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
     )
     del idxk, mutk, idxp, mutp, far
 
@@ -323,9 +403,9 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    for name, nl in launches.items():
-        if nl <= 0:
-            fail(f"the main path launched kernel {name} no time")
+    for name in FUSED_KERNELS:
+        if launches[name] <= 0:
+            fail(f"the fused path launched kernel {name} no time")
 
     T = T_gpu.double().cpu().numpy()
     if not (np.isfinite(T).all() and T.shape == (LANES, 4, 4)):
@@ -395,45 +475,21 @@ def main() -> int:
 
     # Device timeline of one step (torch.profiler): busy share, and the device
     # ops that take the time, summed by name.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profile_report(run_step, "main path")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_step()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        log("profile: the profiler recorded no device ops; busy share not measured")
-    else:
-        busy, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
-        for s0, s1, name in spans:
-            by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
-            if s0 > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s0, s1
-            else:
-                cur_e = max(cur_e, s1)
-        busy += cur_e - cur_s
-        span = spans[-1][1] - spans[0][0]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        log(f"profile: {len(spans)} device ops over a {span / 1e3:.2f} ms device span, busy "
-            f"{busy / 1e3:.2f} ms ({busy / span:.1%}), idle {1 - busy / span:.1%}")
-        for name, us in top:
-            log(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
+    # --- 7-10. the large-cloud path -----------------------------------------
+    del src, tgt
+    torch.cuda.empty_cache()
+    large_launches = large_phases(dev, results)
+    # Kernels 1-3: launches of the fused path's counted step; 4-6: of path B.
+    launches.update({name: large_launches[name] for name in LARGE_KERNELS})
 
-    # --- 6. report --------------------------------------------------------
-    sources = {"lane_nn_smalld": ("tpu3dm_torch/csrc/lane_nn.cu",
-                                  "tpu3dm/ops/nn_lane.py:74"),
-               "lane_mutual": ("tpu3dm_torch/csrc/lane_mutual.cu",
-                               "tpu3dm/ops/nn_lane.py:135"),
-               "ransac_score": ("tpu3dm_torch/csrc/ransac_score.cu",
-                                "tpu3dm/ops/ransac_score.py:124")}
+    # --- 11. report -------------------------------------------------------
     kernels = []
     for name, r in results.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
@@ -443,6 +499,310 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fp32_score_case(sd, td, rc) -> None:
+    """Kernel 3 at one lane on fp32 inputs, as the two-mode RANSAC runs it:
+    the first hypothesis chunk of path B's first restart (the generator
+    register_arrays_large seeds with key 0), built as ransac_two_mode builds
+    it.  The kernel's fmaf chain and the plain version's cuBLAS product sum
+    in different orders, so a count may differ where an entry lies within
+    the fp32 error of the threshold.  Held to: both counts of every
+    hypothesis inside the float64 bracket [sure, sure + near], where near
+    counts entries within gamma_18 * sum|terms| of the threshold (18
+    rounded steps: 16 products, c and e); equal on >= 99.9% of hypotheses;
+    never more than 1 apart."""
+    import torch
+
+    from tpu3dm_torch.ops import ransac_score
+    from tpu3dm_torch.ops.compact import compaction_permutation
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits, f32_square
+    from tpu3dm_torch.registration import hypotheses as hyp
+    from tpu3dm_torch.registration.correspondence import feature_correspondences, gather_pairs
+    from tpu3dm_torch.registration.ransac import _sample_distinct_triples, chunk_count
+
+    pairs, valid = feature_correspondences(sd, td, mutual_filter=rc.mutual_filter)
+    p, q = gather_pairs(sd, td, pairs)
+    order = compaction_permutation(valid)
+    p, q, valid = p[order], q[order], valid[order]
+    pq, F, c = hyp.prepare_correspondences(p[None], q[None])
+    bits = draw_sample_bits(chunk_count(rc.max_iterations, rc.batch_size), rc.batch_size, 2,
+                            torch.Generator().manual_seed(0))[0]
+    triples = _sample_distinct_triples(bits.to(p.device), int(valid.sum()))[None]
+    ga, gb, gc = (torch.gather(pq, 1, triples[..., k, None].expand(-1, -1, 6)) for k in range(3))
+    R, t, _ = hyp.fit3_frames(ga[..., :3], gb[..., :3], gc[..., :3],
+                              ga[..., 3:], gb[..., 3:], gc[..., 3:])
+    H, e = hyp.hypothesis_features_planar(R, t)
+    H, e, F, c, v = (x.contiguous() for x in (H, e, F, c, valid[None]))
+    thr = f32_square(rc.dist_thresh)
+
+    ck = ransac_score.score_features(H, e, F, c, v, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+    H64, F64, c64, e64 = H[0].double(), F[0].double(), c[0].double(), e[0].double()
+    d2 = H64 @ F64.T + c64[None] + e64[:, None]
+    tol = 18 * 2.0 ** -24 * 1.01 * (H64.abs() @ F64.abs().T + c64.abs()[None] + e64.abs()[:, None])
+    sure = ((d2 < thr - tol) & v).sum(1)
+    near = (((d2 - thr).abs() <= tol) & v).sum(1)
+    del d2, tol
+    torch.cuda.synchronize()
+    outside = sum(int(((x[0] < sure) | (x[0] > sure + near)).sum()) for x in (ck, cp))
+    diff = (ck - cp).abs()
+    exact = (diff == 0).float().mean().item()
+    k, nv = H.shape[1], float(v.sum())
+    log(f"kernel ransac_score fp32 (B first RANSAC chunk): {k} hypotheses x {F.shape[1]} "
+        f"correspondences ({nv:.0f} valid): counts equal on {exact:.6f}, max difference "
+        f"{int(diff.max())}, {int((near > 0).sum())} hypotheses with entries within the fp32 "
+        f"error of the threshold, {outside} counts outside the float64 bracket")
+    if outside or exact < 0.999 or int(diff.max()) > 1:
+        fail("ransac_score on fp32 inputs disagrees with its plain version beyond the "
+             "threshold's rounding")
+    Ft = F.transpose(-1, -2)
+
+    def score_library():
+        d2 = torch.baddbmm(c[:, None, :], H, Ft).add_(e[:, :, None])
+        return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
+
+    ms = cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10)
+    plain_ms = cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 3)
+    library_ms = cuda_ms(score_library, 3)
+    # 18 fp32 instructions per hypothesis x valid correspondence (16 FMAs,
+    # the adds of c and e); bytes: H, e and the counts in full, valid rows of
+    # F and c, the mask.
+    bound = bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (18.0 * k * nv, PEAK_FP32_OPS))
+    log(f"kernel ransac_score fp32 (B first RANSAC chunk): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+
+
+def large_phases(dev, results: dict) -> dict:
+    """Paths A and B of ``register_arrays_large`` at LARGE_POINTS points, the
+    kernels 4-6 against their plain versions at those paths' shapes, and
+    path A on the card against the CPU.  Adds the kernels' numbers to
+    ``results``; returns path B's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from tpu3dm_torch.core import se3
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.ops import nn as tnn
+    from tpu3dm_torch.ops import nn_sparse
+    from tpu3dm_torch.preprocess.pipeline import down_features
+    from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
+    from tpu3dm_torch.registration import large
+    from tpu3dm_torch.registration.icp import icp_refine
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.registration.ransac import chunk_count
+
+    t0 = time.time()
+    src_pts, tgt_pts, T_true = make_benchmark_pair(LARGE_POINTS, seed=0, sigma=0.002)
+    log(f"large pair: {LARGE_POINTS} points a cloud, made in {time.time() - t0:.2f} s (host)")
+
+    def gate(T, pts=src_pts, T_ref=T_true):
+        """bench.py's gate: rotation error (deg) and alignment RMSE over the source."""
+        T = T.double().cpu().numpy()
+        if not (T.shape == (4, 4) and np.isfinite(T).all()):
+            fail(f"non-finite or misshapen transform {T}")
+        M = T[:3, :3] @ T_ref[:3, :3].T
+        rot = float(np.degrees(np.arccos(np.clip((np.trace(M) - 1) / 2, -1, 1))))
+        moved = pts @ T[:3, :3].T + T[:3, 3]
+        expect = pts @ T_ref[:3, :3].T + T_ref[:3, 3]
+        return rot, float(np.sqrt(((moved - expect) ** 2).sum(1).mean()))
+
+    def staged(cfg):
+        """The path once more, stage by stage, synchronized between stages;
+        returns stage ms, full-resolution ICP iterations and the stages' data."""
+        pp = cfg.preprocess
+        marks = [time.time()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.time())
+
+        sv = voxel_downsample_host(src_pts, pp.voxel_size, device=dev)
+        tv = voxel_downsample_host(tgt_pts, pp.voxel_size, device=dev)
+        mark()
+        sd, td = (down_features(v, pp.normal_radius, pp.fpfh_radius, normal_max_nn=pp.normal_max_nn,
+                                fpfh_max_nn=pp.fpfh_max_nn) for v in (sv, tv))
+        mark()
+        coarse = large.coarse_pose_with_verification(
+            sd, td, cfg, generator=torch.Generator().manual_seed(0))
+        mark()
+        mid = icp_refine(sd, td, coarse.transformation, dist_thresh=cfg.icp.dist_thresh,
+                         max_iterations=cfg.icp.max_iterations, point_to_plane=True)
+        mark()
+        src = large.prepare_large_cloud(src_pts, device=dev)
+        tgt = large.prepare_large_cloud(tgt_pts, device=dev)
+        mark()
+        tgt = dataclasses.replace(tgt, normals=large.donor_normals(tgt, td))
+        mark()
+        fine = large.icp_refine_large(src, tgt, mid.transformation,
+                                      dist_thresh=cfg.icp.dist_thresh,
+                                      max_iterations=cfg.icp.max_iterations, point_to_plane=True)
+        mark()
+        return np.diff(marks) * 1e3, int(fine.iterations), dict(sd=sd, td=td, src=src, tgt=tgt,
+                                                                mid=mid.transformation)
+
+    stage_names = ("host voxel", "features", "coarse (RANSAC + verify)", "downsampled ICP",
+                   "host kd_perm", "donor normals", "full-res ICP")
+    data, path_launches = {}, {}
+    for name, voxel, needed in LARGE_PATHS:
+        cfg = PipelineConfig.with_voxel_size(voxel)
+        walls = []
+        for _ in ("cold", "warm"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.time()
+            fine, coarse = large.register_arrays_large(src_pts, tgt_pts, cfg, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            counts = {k: v.launches for k, v in KERNELS.items()}
+            for k in needed:
+                if counts[k] <= 0:
+                    fail(f"path {name} launched kernel {k} no time")
+            rot, rmse = gate(fine.transformation)
+            if rot >= LARGE_GATE_ROT_DEG or rmse >= LARGE_GATE_RMSE:
+                fail(f"path {name} quality gate: rot {rot:.4f} deg, rmse {rmse:.3g}")
+        path_launches[name] = counts
+        ms, iters, data[name] = staged(cfg)
+        sd, td = data[name]["sd"], data[name]["td"]
+        log(f"path {name} (voxel {voxel}; down {int(sd.mask.sum())}/{sd.capacity} and "
+            f"{int(td.mask.sum())}/{td.capacity} points): cold {walls[0]:.3f} s, warm "
+            f"{walls[1]:.3f} s; rot {rot:.4f} deg, rmse {rmse:.3g}, fitness "
+            f"{float(fine.fitness):.4f}, full-res ICP iterations {int(fine.iterations)}; "
+            f"coarse fitness {float(coarse.fitness):.4f}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        log(f"path {name} stages (ms, synchronized): "
+            + ", ".join(f"{n} {t:.1f}" for n, t in zip(stage_names, ms))
+            + f"; full-res ICP {iters} iterations + 1 grading pass, "
+              f"{ms[-1] / (iters + 1):.2f} ms a pass")
+        if name == "A":
+            profile_report(lambda: large.register_arrays_large(src_pts, tgt_pts, cfg, device=dev),
+                           f"path {name}")
+    torch.cuda.empty_cache()
+
+    # --- kernels 3-6 against their plain versions, at the paths' shapes ------
+    fp32_score_case(data["B"]["sd"], data["B"]["td"], PipelineConfig.with_voxel_size(0.1).ransac)
+
+    def valid_count(mask):
+        return float(mask.sum().item())
+
+    def chunked_cdist_argmin(q, far):
+        for s in tnn.lane_slices(q.shape[0], far.shape[0]):
+            torch.cdist(q[s], far).argmin(-1)
+
+    def tiled_case(label, q, t, tmask, qmask, reps, pick_rel_tol):
+        """Kernel against plain version: equal picks required where the
+        arithmetic order is the same (pick_rel_tol None), else on >= 99.9% of
+        valid rows with distances within pick_rel_tol of the row's scale."""
+        d2k, ik = tnn.nn_search_tiled(q, t, None, tmask)
+        d2p, ip = tnn.nn_search_tiled_plain(q, t, None, tmask)
+        torch.cuda.synchronize()
+        agree = (ik == ip)[qmask].float().mean().item()
+        err = (d2k - d2p).abs()[qmask].max().item()
+        if pick_rel_tol is None:
+            if agree < 1.0 or err > 0.0:
+                fail(f"{label}: picks equal on {agree:.6%}, max |d2| error {err:.3g} (exact expected)")
+        else:
+            scale = (torch.sum(q * q, -1).max() + torch.sum(t[tmask] ** 2, -1).max()).item()
+            if agree < 0.999 or err > pick_rel_tol * scale:
+                fail(f"{label}: picks equal on {agree:.4%}, max |d2| error {err:.3g} "
+                     f"(allowed {pick_rel_tol * scale:.3g})")
+        far = torch.where(tmask[:, None], t, torch.full_like(t, 1e9))
+        nq, nt, d = valid_count(qmask), valid_count(tmask), q.shape[1]
+        if d < 8:  # fp32 instructions: 3 subtractions, 3 squares, 3 adds (bias first)
+            work = (3.0 * d * nq * nt, PEAK_FP32_OPS)
+        else:  # d FMAs, the -2 scale and the subtraction
+            work = ((d + 2.0) * nq * nt, PEAK_FP32_OPS)
+        r = dict(
+            agree=agree, max_abs_err=err,
+            ms=cuda_ms(lambda: tnn.nn_search_tiled(q, t, None, tmask), reps),
+            plain_ms=cuda_ms(lambda: tnn.nn_search_tiled_plain(q, t, None, tmask), 1),
+            library_ms=cuda_ms(lambda: chunked_cdist_argmin(q, far), 1),
+            # valid rows of both sets, the bias or tsq of every target, d2 and
+            # idx of every query
+            bound=bound_ms(4 * d * (nq + nt) + 4 * t.shape[0] + 8 * q.shape[0], work),
+        )
+        log(f"kernel {label}: {q.shape[0]} x {t.shape[0]} x {d}: picks equal {agree:.6f}, "
+            f"max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        return r
+
+    a, b = data["A"], data["B"]
+    # Kernel 4: donor normals of path A (every full-resolution target point
+    # against the downsampled target), and the downsampled ICP search of path B.
+    results["nn_tiled_smalld"] = tiled_case(
+        "nn_tiled_smalld (A donor normals)", a["tgt"].points, a["td"].points, a["td"].mask,
+        a["tgt"].mask, 10, None)
+    moved = se3.apply(b["mid"], b["sd"].points).contiguous()
+    tiled_case("nn_tiled_smalld (B downsampled ICP)", moved, b["td"].points, b["td"].mask,
+               b["sd"].mask, 10, None)
+    # Kernel 5: the FPFH searches of path B's mutual filter.
+    results["nn_tiled_wide"] = tiled_case(
+        "nn_tiled_wide (B FPFH)", b["sd"].features, b["td"].features, b["td"].mask,
+        b["sd"].mask, 10, 2e-6)
+
+    # Kernel 6: the first full-resolution ICP search of path A.
+    src, tgt = a["src"], a["tgt"]
+    qm, tmask = src.mask, tgt.mask
+    q = torch.where(qm[:, None], se3.apply(a["mid"], src.points), src.points)
+    table, _ = nn_sparse.candidate_blocks(q, tgt.points, src.block, 8)
+    d2k, ik = nn_sparse.nn_search_table(q, tgt.points, table, block=src.block)
+    d2p, ip = nn_sparse.nn_search_table_plain(q, tgt.points, table, block=src.block)
+    torch.cuda.synchronize()
+    agree = (ik == ip)[qm].float().mean().item()
+    err = (d2k - d2p).abs()[qm].max().item()
+    if agree < 1.0 or err > 0.0:
+        fail(f"nn_blocksparse: picks equal on {agree:.6%}, max |d2| error {err:.3g} (exact expected)")
+    blk = src.block
+    vq = qm.reshape(-1, blk).sum(1).double()
+    vt = tmask.reshape(-1, blk).sum(1).double()
+    entries = (vq * vt[table.long()].sum(1)).sum().item()
+    # 7 fp32 instructions per visited valid entry (3 products, 2 adds, the -2
+    # scale, the subtraction); bytes: valid rows of both clouds, the table, d2
+    # and idx of every query.
+    results["nn_blocksparse"] = r = dict(
+        agree=agree, max_abs_err=err,
+        ms=cuda_ms(lambda: nn_sparse.nn_search_table(q, tgt.points, table, block=blk), 5),
+        plain_ms=cuda_ms(lambda: nn_sparse.nn_search_table_plain(q, tgt.points, table, block=blk), 1),
+        library_ms=None,  # no single PyTorch call searches a per-block candidate table
+        bound=bound_ms(12 * (vq.sum() + vt.sum()).item() + 4 * table.numel() + 8 * q.shape[0],
+                       (7.0 * entries, PEAK_FP32_OPS)),
+    )
+    log(f"kernel nn_blocksparse (A first full-res ICP search): {q.shape[0]} x {tgt.points.shape[0]}, "
+        f"{table.shape[0]} query blocks x w {table.shape[1]}, {entries:.4g} valid entries: "
+        f"picks equal {agree:.6f}, max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    del data, a, b, src, tgt, q, table, d2k, ik, d2p, ip, moved
+    torch.cuda.empty_cache()
+
+    # --- path A at AGREE_POINTS on the card and on the CPU -----------------
+    sp, tp, T_small = make_benchmark_pair(AGREE_POINTS, seed=0, sigma=0.002)
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    n_chunks = chunk_count(cfg.ransac.max_iterations, cfg.ransac.batch_size)
+    bits = torch.stack([draw_sample_bits(n_chunks, cfg.ransac.batch_size, 2,
+                                         torch.Generator().manual_seed(r)) for r in range(4)])
+    t0 = time.time()
+    fg, _ = large.register_arrays_large(sp, tp, cfg, device=dev, sample_bits=bits)
+    torch.cuda.synchronize()
+    gpu_s = time.time() - t0
+    t0 = time.time()
+    fc, _ = large.register_arrays_large(sp, tp, cfg, device="cpu", sample_bits=bits)
+    cpu_s = time.time() - t0
+    Tg, Tc = fg.transformation.double().cpu().numpy(), fc.transformation.double().numpy()
+    fro = np.linalg.norm(Tg[:3, :3] - Tc[:3, :3])
+    d_rot = float(np.degrees(2 * np.arcsin(min(fro / (2 * np.sqrt(2)), 1.0))))
+    d_t = float(np.abs(Tg[:3, 3] - Tc[:3, 3]).max())
+    rot_g, rmse_g = gate(fg.transformation, sp, T_small)
+    if d_rot >= 0.5 or d_t >= 0.02:
+        fail(f"path A at {AGREE_POINTS} points: card and CPU differ by {d_rot:.4f} deg, t {d_t:.4g}")
+    if rot_g >= LARGE_GATE_ROT_DEG or rmse_g >= LARGE_GATE_RMSE:
+        fail(f"path A at {AGREE_POINTS} points on the card: rot {rot_g:.4f} deg, rmse {rmse_g:.3g}")
+    log(f"path A at {AGREE_POINTS} points, same sample bits: card {gpu_s:.2f} s, CPU {cpu_s:.2f} s; "
+        f"card vs CPU rot {d_rot:.5f} deg, t {d_t:.3g}; iterations {int(fg.iterations)} / "
+        f"{int(fc.iterations)}; card vs T_true rot {rot_g:.4f} deg, rmse {rmse_g:.3g}")
+    return path_launches["B"]
 
 
 if __name__ == "__main__":

@@ -14,7 +14,11 @@ import torch
 
 from tpu3dm_torch.core.se3 import exp_so3
 from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
-from tpu3dm_torch.ops import nn_lane, ransac_score
+from tpu3dm_torch.ops import nn as tnn
+from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score
+
+ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "ransac_score",
+               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse"}
 
 
 @pytest.fixture
@@ -33,7 +37,11 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     ransac_score.score_features(torch.zeros(1, 4, 16), torch.zeros(1, 4),
                                 torch.zeros(1, 8, 16), torch.zeros(1, 8),
                                 torch.ones(1, 8, dtype=torch.bool), 1.0)
-    assert set(KERNELS) == {"lane_nn_smalld", "lane_mutual", "ransac_score"}
+    tnn.nn_search_tiled(torch.rand(8, 3), torch.rand(16, 3))
+    tnn.nn_search_tiled(torch.rand(8, 33), torch.rand(16, 33))
+    nn_sparse.nn_search_table(torch.rand(8, 3), torch.rand(16, 3),
+                              torch.zeros(2, 2, dtype=torch.int32), block=4)
+    assert set(KERNELS) == ALL_KERNELS
     assert all(k.launches == 0 for k in KERNELS.values())
 
 
@@ -52,6 +60,12 @@ def test_wrappers_reject_other_devices():
             torch.zeros(1, 8, 16, device="meta"), torch.zeros(1, 8, device="meta"),
             torch.ones(1, 8, dtype=torch.bool, device="meta"), 1.0,
         )
+    for d in (3, 33):
+        with pytest.raises(ValueError):
+            tnn.nn_search_tiled(torch.zeros(8, d, device="meta"), torch.zeros(8, d, device="meta"))
+    with pytest.raises(ValueError):
+        nn_sparse.nn_search_table(torch.zeros(8, 3, device="meta"), torch.zeros(8, 3, device="meta"),
+                                  torch.zeros(2, 1, dtype=torch.int32, device="meta"), block=4)
 
 
 def test_wrappers_check_shapes():
@@ -63,6 +77,15 @@ def test_wrappers_check_shapes():
         ransac_score.score_features(torch.zeros(1, 4, 15), torch.zeros(1, 4),
                                     torch.zeros(1, 8, 15), torch.zeros(1, 8),
                                     torch.ones(1, 8, dtype=torch.bool), 1.0)
+    with pytest.raises(ValueError):
+        tnn.nn_search_tiled(torch.zeros(1, 8, 3), torch.zeros(1, 8, 3))
+    with pytest.raises(ValueError):
+        tnn.nn_search_tiled(torch.zeros(8, 3), torch.zeros(8, 4))
+    table = torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(ValueError):  # not padded to the block
+        nn_sparse.nn_search_table(torch.zeros(7, 3), torch.zeros(8, 3), table, block=4)
+    with pytest.raises(ValueError):  # one table row per query block
+        nn_sparse.nn_search_table(torch.zeros(12, 3), torch.zeros(8, 3), table, block=4)
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):
@@ -170,7 +193,8 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     Tg, fg, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, **kw)
     Tc, fc, _ = fused_register_step(*args, bits, device="cpu", **kw)
     torch.cuda.synchronize()
-    assert all(KERNELS[n].launches > before[n] for n in KERNELS)
+    assert all(KERNELS[n].launches > before[n]
+               for n in ("lane_nn_smalld", "lane_mutual", "ransac_score"))
     Tg, Tc = Tg.cpu().double(), Tc.double()
     fro = torch.linalg.matrix_norm(Tg[:, :3, :3] - Tc[:, :3, :3])
     assert torch.rad2deg(2 * torch.asin(fro / (2 * 2 ** 0.5))).max() < 0.05
@@ -178,3 +202,115 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     M = Tg[:, :3, :3].numpy() @ T_true[:3, :3].T
     rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
     assert rot.max() < 2.0
+
+
+@pytest.mark.gpu
+def test_nn_tiled_smalld_kernel_matches_plain(cuda_device):
+    """Same rounding order as the plain version: bit for bit, at a query
+    count that takes the 4-queries-a-thread launch and one that does not."""
+    rng = np.random.default_rng(3)
+    t = torch.tensor(rng.normal(size=(5000, 3)), dtype=torch.float32, device=cuda_device)
+    tm = torch.tensor(rng.random(5000) > 0.3, device=cuda_device)
+    for nq in (700, 140_000):
+        q = torch.tensor(rng.normal(size=(nq, 3)), dtype=torch.float32, device=cuda_device)
+        before = KERNELS["nn_tiled_smalld"].launches
+        d2k, idxk = tnn.nn_search_tiled(q, t, None, tm)
+        d2p, idxp = tnn.nn_search_tiled_plain(q, t, None, tm)
+        torch.cuda.synchronize()
+        assert KERNELS["nn_tiled_smalld"].launches == before + 1
+        assert torch.equal(idxk, idxp) and torch.equal(d2k, d2p)
+
+
+@pytest.mark.gpu
+def test_nn_tiled_smalld_kernel_takes_only_3d(cuda_device):
+    """Below d = 8 the kernel is built for d = 3 only; other widths raise on
+    CUDA rather than run the plain version."""
+    q = torch.zeros(8, 5, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        tnn.nn_search_tiled(q, q)
+
+
+@pytest.mark.gpu
+def test_nn_tiled_wide_kernel_matches_plain(cuda_device):
+    """An fmaf chain against a cuBLAS product: picks equal on >= 99.9% of
+    rows, distances within 1e-5 relative to |q|^2 + |t|^2."""
+    rng = np.random.default_rng(7)
+    q = torch.tensor(rng.random((3000, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.random((4100, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    tm = torch.tensor(rng.random(4100) > 0.1, device=cuda_device)
+    d2k, idxk = tnn.nn_search_tiled(q, t, None, tm)
+    d2p, idxp = tnn.nn_search_tiled_plain(q, t, None, tm)
+    torch.cuda.synchronize()
+    assert (idxk == idxp).float().mean() >= 0.999
+    scale = (q * q).sum(1).max() + (t * t).sum(1).max()
+    assert (d2k - d2p).abs().max() <= 1e-5 * scale
+    assert tm[idxk.long()].all()
+
+
+@pytest.mark.gpu
+def test_nn_blocksparse_kernel_matches_plain(cuda_device):
+    """Same rounding order as the plain version: bit for bit, sentinel rows
+    included, on KD-sorted clouds with their candidate table."""
+    from tpu3dm_torch.io.synthetic import dental_arch_cloud
+
+    block = 256
+    tgt = dental_arch_cloud(30000, seed=0).astype(np.float32)
+    qry = dental_arch_cloud(29000, seed=1).astype(np.float32) + 0.005
+    tp = torch.tensor(nn_sparse.pad_sorted(tgt[nn_sparse.kd_perm(tgt, block)], block),
+                      device=cuda_device)
+    qp = torch.tensor(nn_sparse.pad_sorted(qry[nn_sparse.kd_perm(qry, block)], block),
+                      device=cuda_device)
+    table, _ = nn_sparse.candidate_blocks(qp, tp, block, 8)
+    before = KERNELS["nn_blocksparse"].launches
+    d2k, idxk = nn_sparse.nn_search_table(qp, tp, table, block=block)
+    d2p, idxp = nn_sparse.nn_search_table_plain(qp, tp, table, block=block)
+    torch.cuda.synchronize()
+    assert KERNELS["nn_blocksparse"].launches == before + 1
+    assert torch.equal(idxk, idxp) and torch.equal(d2k, d2p)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_raise_on_wrong_cuda_input(cuda_device):
+    q = torch.zeros(8, 3, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        tnn.nn_search_tiled(q, q)
+    q = torch.zeros(8, 6, device=cuda_device)[:, :3]  # not contiguous
+    with pytest.raises(ValueError):
+        tnn.nn_search_tiled(q, q)
+    with pytest.raises(TypeError):
+        nn_sparse.nn_search_table(torch.zeros(8, 3, device=cuda_device),
+                                  torch.zeros(8, 3, device=cuda_device),
+                                  torch.zeros(2, 1, dtype=torch.int64, device=cuda_device), block=4)
+
+
+@pytest.mark.gpu
+def test_register_arrays_large_cuda_matches_cpu(cuda_device):
+    """The large-cloud slice on the card against the plain versions on the
+    CPU, same sample bits: poses within 0.5 deg and 0.02, every new kernel
+    launched, inside bench.py's gate."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.registration.large import register_arrays_large
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.registration.ransac import chunk_count
+
+    cfg = PipelineConfig.with_voxel_size(0.1)  # 8192-capacity clouds: both tiled kernels
+    sp, tp, T_true = make_benchmark_pair(60000, seed=2, sigma=0.002)
+    k = cfg.ransac.batch_size
+    bits = torch.stack([draw_sample_bits(chunk_count(cfg.ransac.max_iterations, k), k, 2,
+                                        torch.Generator().manual_seed(r)) for r in range(2)])
+    before = {n: kern.launches for n, kern in KERNELS.items()}
+    fg, _ = register_arrays_large(sp, tp, cfg, restarts=2, sample_bits=bits)
+    torch.cuda.synchronize()
+    for name in ("ransac_score", "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse"):
+        assert KERNELS[name].launches > before[name], name
+    fc, _ = register_arrays_large(sp, tp, cfg, restarts=2, sample_bits=bits, device="cpu")
+    Tg, Tc = fg.transformation.cpu().double(), fc.transformation.double()
+    fro = torch.linalg.matrix_norm(Tg[:3, :3] - Tc[:3, :3])
+    assert torch.rad2deg(2 * torch.asin(fro / (2 * 2 ** 0.5))) < 0.5
+    assert (Tg[:3, 3] - Tc[:3, 3]).abs().max() < 0.02
+    T = Tg.numpy()
+    rot = np.degrees(np.arccos(np.clip((np.trace(T[:3, :3] @ T_true[:3, :3].T) - 1) / 2, -1, 1)))
+    moved = sp @ T[:3, :3].T + T[:3, 3]
+    expect = sp @ T_true[:3, :3].T + T_true[:3, 3]
+    assert rot < 2.0 and np.sqrt(((moved - expect) ** 2).sum(1).mean()) < 0.01

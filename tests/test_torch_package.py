@@ -40,7 +40,8 @@ def test_import_needs_no_triton_nvcc_or_gpu():
         "for m in pkgutil.walk_packages(tpu3dm_torch.__path__, 'tpu3dm_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from tpu3dm_torch.csrc import KERNELS\n"
-        "assert set(KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score'}, KERNELS\n"
+        "assert set(KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score',\n"
+        "                        'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse'}, KERNELS\n"
         "assert all(k._fn is None for k in KERNELS.values())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu3dm')]\n"
         "assert not bad, bad\n"
@@ -57,6 +58,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu3dm_torch import resolve_device
     from tpu3dm_torch.preprocess.pipeline import preprocess_points
     from tpu3dm_torch.registration.fused import fused_register_step
+    from tpu3dm_torch.registration.large import prepare_large_cloud, register_arrays_large
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -68,6 +70,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     m = np.ones((1, 8), bool)
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_register_step(z3, f, m, z3, z3, f, m, z3)
+    pts = np.random.default_rng(1).normal(size=(600, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        register_arrays_large(pts, pts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prepare_large_cloud(pts)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

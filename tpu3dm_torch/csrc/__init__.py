@@ -6,9 +6,9 @@ Every C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns ``cudaGetLastError()``.
 
 Libraries are built on first use into ``build/`` beside the sources, under a
-name that hashes the source and the flags, so an edited kernel is rebuilt and
-an unchanged one is loaded as it is.  ``build()`` compiles several sources at
-once, one nvcc process each.  Importing this module builds nothing and needs
+name that hashes the source, the shared ``*.cuh`` headers and the flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.  ``build()``
+compiles several sources at once, one nvcc process each.  Importing this module builds nothing and needs
 neither nvcc nor a GPU.
 
 A :class:`Kernel` is one C entry point.  Its ``launches`` counter goes up by
@@ -50,9 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of ``source`` (a file name in this directory) goes."""
+    """Where the library of ``source`` (a file name in this directory) goes.
+    The name hashes the shared headers too, so editing one rebuilds."""
     h = hashlib.sha256()
-    h.update((SRC_DIR / source).read_bytes())
+    for path in [SRC_DIR / source, *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -13,28 +13,30 @@
 // outputs.  The TPU kernel holds one lane in VMEM and sweeps 256-wide target
 // sub-blocks; here blocks run in no order, so a block takes 256 query rows of
 // one lane, each thread keeps its query point and its running (min, argmin) in
-// registers, and the lane's targets stream through shared memory as float4
-// (x, y, z, bias).  Every thread of a warp reads the same target, which shared
+// registers, and the lane's targets stream through shared memory as
+// (x, y, z, bias) rows.  Every thread of a warp reads the same target, which shared
 // memory serves as one broadcast load per entry; the [M, N] distances never
 // leave registers.
 //
-// Rounding: each difference, square and sum is rounded on its own (no FMA
-// contraction), in the order of the plain version
-// (tpu3dm_torch/ops/nn.py:nn_search_dense), so the two agree bit for bit.
+// Rounding: biased_sq_dist3 (sqdist3.cuh, shared with nn_tiled.cu) rounds
+// each difference, square and sum on its own in the plain version's order, so
+// the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sqdist3.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 2048;  // targets staged per pass: 32 KB of float4
+constexpr int kTile = 2048;  // targets staged per pass: 32 KB of (x, y, z, bias)
 
 __global__ void __launch_bounds__(kThreads)
 lane_nn_smalld_kernel(const float* __restrict__ q, const float* __restrict__ t,
                       const float* __restrict__ bias, float* __restrict__ d2_out,
                       int* __restrict__ idx_out, int M, int N) {
-  __shared__ float4 tile[kTile];
+  __shared__ float tile[4 * kTile];
   const int lane = blockIdx.y;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const float* lq = q + static_cast<size_t>(lane) * M * 3;
@@ -54,17 +56,15 @@ lane_nn_smalld_kernel(const float* __restrict__ q, const float* __restrict__ t,
     __syncthreads();
     for (int j = threadIdx.x; j < n; j += kThreads) {
       const int g = base + j;
-      tile[j] = make_float4(lt[3 * g], lt[3 * g + 1], lt[3 * g + 2], lb[g]);
+      tile[4 * j] = lt[3 * g];
+      tile[4 * j + 1] = lt[3 * g + 1];
+      tile[4 * j + 2] = lt[3 * g + 2];
+      tile[4 * j + 3] = lb[g];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
-      const float4 p = tile[j];
-      const float dx = __fsub_rn(qx, p.x);
-      const float dy = __fsub_rn(qy, p.y);
-      const float dz = __fsub_rn(qz, p.z);
-      float acc = __fadd_rn(p.w, __fmul_rn(dx, dx));
-      acc = __fadd_rn(acc, __fmul_rn(dy, dy));
-      acc = __fadd_rn(acc, __fmul_rn(dz, dz));
+      const float acc = biased_sq_dist3(qx, qy, qz, tile[4 * j], tile[4 * j + 1],
+                                        tile[4 * j + 2], tile[4 * j + 3]);
       if (acc < best) {  // strict: ties keep the smaller index
         best = acc;
         best_j = base + j;

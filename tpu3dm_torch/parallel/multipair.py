@@ -32,7 +32,8 @@ def draw_sample_bits(
     n_lanes: int, n_chunks: int, m_s: int, generator: torch.Generator | None = None
 ) -> torch.Tensor:
     """[n_lanes, n_chunks, m_s] int64 holding uniform uint32 values, drawn on
-    the CPU from ``generator`` (torch's default generator when None)."""
+    the CPU from ``generator`` (torch's default generator when None).  The
+    two-mode RANSAC draws its [n_chunks, K, 2] bits the same way."""
     return torch.randint(0, 1 << 32, (n_lanes, n_chunks, m_s), generator=generator,
                          dtype=torch.int64)
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu3dm_torch.ops.ransac_score import score_features
+from tpu3dm_torch.ops.ransac_score import corres_features, score_features
 from tpu3dm_torch.registration.kabsch import fit_rigid_horn
 
 PlanarR = tuple[tuple[torch.Tensor, ...], ...]
@@ -110,6 +110,31 @@ def winner_T(R: PlanarR, t: PlanarT, k: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def rot_cos_planar(T_ref: torch.Tensor, R: PlanarR) -> torch.Tensor:
+    """cos(angle(T_ref.R, R_k)) = (trace(T_ref.R^T R_k) - 1) / 2 for every
+    hypothesis: T_ref [B, 4, 4], R planar [B, K] -> [B, K]."""
+    tr = sum(T_ref[:, i, j, None] * R[i][j] for i in range(3) for j in range(3))
+    return (tr - 1.0) * 0.5
+
+
+def prepare_correspondences(p_all: torch.Tensor, q_all: torch.Tensor):
+    """Per-call operands of the hypothesis chunks: pq [..., M, 6] (one gather
+    per sample slot) and the score features (F [..., M, 16], c [..., M])."""
+    F, c = corres_features(p_all, q_all)
+    return torch.cat([p_all, q_all], dim=-1), F, c
+
+
+def sample_fit_score(pq, F, c, valid, triples, thresh_sq: float, *,
+                     edge_length_ratio: float = 0.9, use_checkers: bool = True):
+    """Fit + checkers + score of the sampled triples (triples [B, K, 3] int64
+    rows of pq [B, M, 6]); the fp32 score.  Returns (R, t, counts [B, K])."""
+    ga, gb, gc = (
+        torch.gather(pq, 1, triples[..., s, None].expand(-1, -1, pq.shape[-1])) for s in range(3)
+    )
+    return fit_score_gathers(ga, gb, gc, F, c, valid, thresh_sq,
+                             edge_length_ratio=edge_length_ratio, use_checkers=use_checkers)
+
+
 def sample_row_count(m: int, k: int) -> int:
     """Rows the roll sampler gathers per chunk of k hypotheses over m rows
     (the JAX default, ``RansacConfig.sample_rows = 0``)."""
@@ -162,10 +187,12 @@ def fit_score_gathers(
     thresh_sq: float,
     *,
     edge_length_ratio: float = 0.9,
+    use_checkers: bool = True,
     approx_score: bool = False,
 ) -> tuple[PlanarR, PlanarT, torch.Tensor]:
     """Fit + checkers + score from pre-gathered sample rows (ga/gb/gc
-    [B, K, 6]); F [B, M, 16], c [B, M], valid [B, M].
+    [B, K, 6]); F [B, M, 16], c [B, M], valid [B, M].  ``use_checkers``
+    applies the edge-length and distance checkers (Open3D's).
 
     ``approx_score`` rounds H and F to bf16 before the fp32 score: the
     products of bf16 values are exact in fp32, so this gives the products of
@@ -187,6 +214,8 @@ def fit_score_gathers(
 
     # Degenerate / non-finite fits must never be elected.
     ok = ok & torch.isfinite(e)
+    if not use_checkers:
+        return R, t, torch.where(ok, counts, -1)
 
     def e2(a, b):
         d = a - b
