@@ -7,15 +7,17 @@ Run from the repository root, with no arguments:
 
 Phases (any failure exits non-zero and prints no ok line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels of tpu3dm_torch/csrc, one nvcc per source, all
-     started together;
+  2. build the CUDA kernels of tpu3dm_torch/csrc (one nvcc per source) and
+     its host C++ library (the host compiler), all started together;
   3. preprocess the 8 benchmark pairs (make_benchmark_pair(20000, seed=s,
      sigma=0.01), s = 0..7) on the card, pad them to the shared capacity
      and tile them to 2048 pair lanes, as bench.py does;
   4. each kernel against its plain version at the main path's shapes (2048
      lanes, M = N = 1024, K = 4096), every lane jittered and thinned on its
      own so that no two lanes hold the same data, with kernel, plain and
-     library-yardstick times and each kernel's bound;
+     library-yardstick times and each kernel's bound: kernels 1-3, kernel 7
+     (the 33-D forward NN of path C) and kernel 1 at the rescue's
+     verification shape (VERIFY_CANDIDATES moved sources a lane);
   5. the main path: fused_register_step over the 2048 lanes (4096
      hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
      search, bf16 score), launch counts zeroed just before and read just
@@ -23,6 +25,11 @@ Phases (any failure exits non-zero and prints no ok line):
      T_true); 4 lanes checked against the same step on the CPU; pairs/s
      and stage times;
   6. one profiled step: the device's busy and idle share, ops by name;
+  6b. path C: the same step with mutual_filter=False and the batched alias
+     rescue (3 restarts, 6 modes, 8 verification solves), launch counts
+     zeroed just before and read just after, every lane gated, lanes 0-3
+     against the CPU, pairs/s, stage times, peak memory, one profiled step;
+     path D: the rescue with the mutual filter, gated and timed once;
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -39,8 +46,8 @@ Phases (any failure exits non-zero and prints no ok line):
   9. path A at 40,000 points on the card and on the CPU (plain versions)
      with the same sample bits: rotation within 0.5 deg, translation 0.02;
  10. one JSON line of per-kernel numbers (launches: kernels 1-3 from the
-     fused step's counted call, 4-6 from path B's warm call), then the ok
-     line, last.
+     fused step's counted call, 4-6 from path B's warm call, 7 from path C's
+     counted call), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -58,6 +65,12 @@ N_POINTS = 20_000
 HYPOTHESES = 4096
 ICP_ITERS = 8
 ICP_SOLVES_PER_NN = 4
+# Path C / D: the rescue's production settings (bench.py's robustness config).
+RESCUE_RESTARTS = 3
+RESCUE_MODES = 6
+VERIFY_ITERS = 8
+# Candidates a lane verifies after the dedup: min(R * modes, modes + 4).
+VERIFY_CANDIDATES = min(RESCUE_RESTARTS * RESCUE_MODES, RESCUE_MODES + 4)
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
 # bandwidth; fp32 outside the tensor cores, 67 TFLOP/s counting an FMA as two
 # flops, so fp32 instructions (an FMA, an add, a multiply, a subtraction each
@@ -76,6 +89,7 @@ SOURCES = {
     "nn_tiled_smalld": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:138"),
     "nn_tiled_wide": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:169"),
     "nn_blocksparse": ("tpu3dm_torch/csrc/nn_blocksparse.cu", "tpu3dm/ops/nn_sparse.py:199"),
+    "lane_nn_wide": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:100"),
 }
 FUSED_KERNELS = ("lane_nn_smalld", "lane_mutual", "ransac_score")
 LARGE_KERNELS = ("nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")
@@ -121,6 +135,31 @@ def bound_ms(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
     peak rate) of ``work``, operations over that rate."""
     times = [n_bytes / PEAK_HBM_BYTES] + [ops / rate for ops, rate in work]
     return max(times) * 1e3, ("bytes" if times[0] >= max(times) else "operations")
+
+
+def fused_gate(T_gpu, T_true, mu, M2):
+    """bench.py's per-lane gate: rotation error (deg) and closed-form
+    alignment RMSE over the source, for [B, 4, 4] poses."""
+    T = T_gpu.double().cpu().numpy()
+    if not (np.isfinite(T).all() and T.shape == T_true.shape):
+        fail("non-finite or misshapen transforms")
+    M = T[:, :3, :3] @ np.swapaxes(T_true[:, :3, :3], 1, 2)
+    rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    A = T[:, :3, :3] - T_true[:, :3, :3]
+    bb = T[:, :3, 3] - T_true[:, :3, 3]
+    rmse = np.sqrt(np.maximum(
+        np.einsum("bij,bjk,bik->b", A, M2, A) + 2 * np.einsum("bi,bij,bj->b", bb, A, mu)
+        + (bb * bb).sum(1), 0.0))
+    return rot, rmse
+
+
+def apart(Ta, Tb):
+    """Rotation (deg, from ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2), exact near
+    0) and largest translation gap between two [B, 4, 4] pose sets."""
+    Ta, Tb = Ta.double().cpu().numpy(), Tb.double().cpu().numpy()
+    fro = np.linalg.norm(Ta[:, :3, :3] - Tb[:, :3, :3], axis=(1, 2))
+    rot = np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
+    return float(rot.max()), float(np.abs(Ta[:, :3, 3] - Tb[:, :3, 3]).max())
 
 
 def profile_report(fn, label: str) -> None:
@@ -171,6 +210,7 @@ def main() -> int:
     from tpu3dm_torch.core.config import PipelineConfig
     from tpu3dm_torch.csrc import KERNELS, build, reset_launch_counts
     from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.ops import nn as tnn
     from tpu3dm_torch.ops import nn_lane, ransac_score
     from tpu3dm_torch.ops.compact import compaction_permutation
     from tpu3dm_torch.parallel.multipair import (
@@ -184,7 +224,7 @@ def main() -> int:
         _pn_center,
         fused_register_step,
         icp_polish,
-        mutual_correspondences,
+        correspondences,
     )
 
     dev = torch.device("cuda")
@@ -244,11 +284,11 @@ def main() -> int:
         approx_score=True, approx_features=False, nn_impl="lane", rescue_restarts=0,
     )
 
-    def run_step(lanes=slice(None), device=None):
+    def run_step(lanes=slice(None), device=None, bits=bits, **kw):
         args = [d[a][lanes] for d in (src, tgt) for a in attrs]
         if device == "cpu":
             args = [x.cpu() for x in args]
-        return fused_register_step(*args, bits[lanes], device=device, **step_kw)
+        return fused_register_step(*args, bits[lanes], device=device, **{**step_kw, **kw})
 
     # --- 4. kernels against their plain versions ---------------------------
     # At the main path's shapes, all LANES lanes.  The lanes tile PAIRS pairs,
@@ -283,7 +323,7 @@ def main() -> int:
     if idx_agree < 0.999 or d2_err > 1e-4:
         fail(f"lane_nn_smalld disagrees: idx {idx_agree:.6f}, max |d2| err {d2_err:.3g}")
     far = torch.where(tm[..., None], tp, torch.full_like(tp, 1e9))
-    b, m, n = q.shape
+    b, m, n = q.shape[0], q.shape[1], tp.shape[1]
     nq, nt = lane_counts(sm), lane_counts(tm)
     # Needed work: valid queries x valid targets, 9 fp32 instructions each (3
     # subtractions, 3 squares, 3 adds: bias first); bytes: valid rows, the
@@ -321,7 +361,7 @@ def main() -> int:
 
     na, nb = fa.shape[1], fb.shape[1]
     # Needed work: valid rows x valid columns, 35 fp32 instructions each (33
-    # FMAs, the norms' add, the -2 scale); bytes: valid feature rows, both
+    # FMAs, the norms' add, one FMA of the -2 scale); bytes: valid feature rows, both
     # masks, and idx and mutual of every row.
     results["lane_mutual"] = dict(
         agree=agree, max_abs_err=mut_err,
@@ -333,11 +373,74 @@ def main() -> int:
     )
     del idxk, mutk, idxp, mutp, far
 
+    # Kernel 7: the 33-D forward NN per lane (path C's correspondences), on
+    # the same jittered, thinned features.
+    d2k, idxk = nn_lane.nn_search_lane(fa, fb, sm, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(fa, fb, sm, tm)
+    torch.cuda.synchronize()
+    agree, excess = wide_pick_check(fa, fb, tm, sm, idxk, idxp)
+    wide_err = (d2k - d2p).abs()[sm].max().item()
+    if agree < 0.999 or excess > 0.0:
+        fail(f"lane_nn_wide: picks equal on {agree:.4%} of rows, a pick {excess:.3g} beyond "
+             f"the fp32 error bound of the float64 minimum")
+    tsq = torch.where(tm, torch.sum(fb * fb, -1), 1e30)
+
+    def wide_library():  # one tsq - 2 q.t product and its argmin, chunked over lanes
+        for sl in tnn.lane_slices(b, na * nb):
+            torch.baddbmm(tsq[sl, None, :], fa[sl], fb[sl].transpose(1, 2), alpha=-2.0).argmin(-1)
+
+    # Needed work: valid rows x valid columns, 34 fp32 instructions each (33
+    # FMAs, then one FMA of the -2 scale with |t|^2); bytes: valid feature
+    # rows, the target mask, d2 and idx of every row.
+    results["lane_nn_wide"] = dict(
+        agree=agree, max_abs_err=wide_err,
+        ms=cuda_ms(lambda: nn_lane.nn_search_lane(fa, fb, sm, tm), 5),
+        plain_ms=cuda_ms(lambda: nn_lane.nn_search_lane_plain(fa, fb, sm, tm), 2),
+        library_ms=cuda_ms(wide_library, 2),
+        bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * nb + 8 * b * na,
+                       (34.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+    )
+    del d2k, idxk, d2p, idxp, tsq
+
+    # Kernel 1 at the rescue's verification shape: VERIFY_CANDIDATES poses a
+    # lane near the true one, each moving the lane's jittered source; the
+    # C x M moved points are C x M query rows of the lane.
+    cv = VERIFY_CANDIDATES
+    xi = 0.02 * torch.randn((LANES, cv, 6), generator=gen, device=dev)
+    Tv = se3.exp_se3(xi) @ T_c[:, None]
+    qv = jitter(se3.apply(Tv, (src["points"] - frame_c[:, None])[:, None]).reshape(LANES, cv * m, 3),
+                1e-3)
+    d2k, idxk = nn_lane.nn_search_lane(qv, tp, None, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(qv, tp, None, tm)
+    torch.cuda.synchronize()
+    smv = sm.repeat(1, cv)
+    v_agree = (idxk == idxp)[smv].float().mean().item()
+    v_err = (d2k - d2p).abs()[smv].max().item()
+    if v_agree < 1.0 or v_err > 0.0:
+        fail(f"lane_nn_smalld at {cv} candidates a lane: picks equal on {v_agree:.6%}, "
+             f"max |d2| error {v_err:.3g} (exact expected)")
+    farv = torch.where(tm[..., None], tp, torch.full_like(tp, 1e9))
+
+    def verify_library():
+        for sl in tnn.lane_slices(b, cv * m * n):
+            torch.cdist(qv[sl], farv[sl]).argmin(-1)
+
+    v_ms = cuda_ms(lambda: nn_lane.nn_search_lane(qv, tp, None, tm), 10)
+    v_plain = cuda_ms(lambda: nn_lane.nn_search_lane_plain(qv, tp, None, tm), 1)
+    v_lib = cuda_ms(verify_library, 1)
+    v_bound = bound_ms(12 * (cv * nq.sum() + nt.sum()).item() + b * n + 8 * b * cv * m,
+                       (9.0 * cv * (nq * nt).sum().item(), PEAK_FP32_OPS))
+    log(f"kernel lane_nn_smalld at the verification shape ({LANES} lanes x {cv} candidates x {m} "
+        f"queries against {n} targets): picks equal {v_agree:.6f}, max |d2| err {v_err:.3g}; "
+        f"kernel {v_ms:.4f} ms, plain {v_plain:.4f} ms, library {v_lib:.4f} ms, bound "
+        f"{v_bound[0]:.4f} ms ({v_bound[1]})")
+    del d2k, idxk, d2p, idxp, qv, farv, Tv, xi, smv
+
     # Kernel 3: the RANSAC score of one 4096-hypothesis chunk, built from the
     # lanes' own correspondences as ransac_pair_step builds it (centred
     # correspondences, roll sampler, triangle-frame fits, bf16-rounded
     # features, as approx_score does).
-    qa, valid = mutual_correspondences(fa, fb, sm, tm, tp)
+    qa, valid = correspondences(fa, fb, sm, tm, tp)
     p = jitter(src["points"] - frame_c[:, None], 1e-3)
     w = valid.float()[..., None]
     c0 = ((p + qa) * 0.5 * w).sum(-2) / w.sum(-2).clamp_min(1.0)
@@ -407,30 +510,17 @@ def main() -> int:
         if launches[name] <= 0:
             fail(f"the fused path launched kernel {name} no time")
 
-    T = T_gpu.double().cpu().numpy()
-    if not (np.isfinite(T).all() and T.shape == (LANES, 4, 4)):
-        fail("non-finite or misshapen transforms")
-    M = T[:, :3, :3] @ np.swapaxes(T_true[:, :3, :3], 1, 2)
-    rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
     mu = np.tile(np.stack([mo[0] for mo in moments]), (LANES // PAIRS, 1))
     M2 = np.tile(np.stack([mo[1] for mo in moments]), (LANES // PAIRS, 1, 1))
-    A = T[:, :3, :3] - T_true[:, :3, :3]
-    bb = T[:, :3, 3] - T_true[:, :3, 3]
-    rmse_true = np.sqrt(np.maximum(
-        np.einsum("bij,bjk,bik->b", A, M2, A) + 2 * np.einsum("bi,bij,bj->b", bb, A, mu)
-        + (bb * bb).sum(1), 0.0))
+    rot, rmse_true = fused_gate(T_gpu, T_true, mu, M2)
     if rot.max() >= 2.0 or rmse_true.max() >= 0.1:
         fail(f"quality gate: worst lane rot {rot.max():.3f} deg, rmse {rmse_true.max():.4f}")
 
     ref_lanes = slice(0, 4)
     T_cpu, _, _ = run_step(ref_lanes, device="cpu")
-    T_ref = T_cpu.double().numpy()
-    # ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2) for rotations: exact near 0.
-    fro = np.linalg.norm(T[ref_lanes, :3, :3] - T_ref[:, :3, :3], axis=(1, 2))
-    ref_rot = np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
-    ref_t = np.abs(T[ref_lanes, :3, 3] - T_ref[:, :3, 3]).max()
-    if ref_rot.max() >= 0.5 or ref_t >= 0.02:
-        fail(f"GPU and CPU runs of lanes 0-3 differ: rot {ref_rot.max():.4f} deg, t {ref_t:.4g}")
+    ref_rot, ref_t = apart(T_gpu[ref_lanes], T_cpu)
+    if ref_rot >= 0.5 or ref_t >= 0.02:
+        fail(f"GPU and CPU runs of lanes 0-3 differ: rot {ref_rot:.4f} deg, t {ref_t:.4g}")
 
     times = []
     for _ in range(3):
@@ -447,7 +537,7 @@ def main() -> int:
         fc = _pn_center(tgt["points"], tgt["mask"])
         sp_ = (src["points"] - fc[:, None]).contiguous()
         tp_ = (tgt["points"] - fc[:, None]).contiguous()
-        qa, valid = mutual_correspondences(src["features"], tgt["features"], src["mask"],
+        qa, valid = correspondences(src["features"], tgt["features"], src["mask"],
                                            tgt["mask"], tp_)
         torch.cuda.synchronize()
         marks.append(time.time())
@@ -471,18 +561,24 @@ def main() -> int:
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"quality: worst lane rot {rot.max():.4f} deg, rmse {rmse_true.max():.5f}, "
         f"fitness min {fit.min().item():.3f}, icp rmse max {rmse.max().item():.4f}; "
-        f"lanes 0-3 vs CPU: rot {ref_rot.max():.4f} deg, t {ref_t:.3g}; launches {launches}")
+        f"lanes 0-3 vs CPU: rot {ref_rot:.4f} deg, t {ref_t:.3g}; launches {launches}")
 
     # Device timeline of one step (torch.profiler): busy share, and the device
     # ops that take the time, summed by name.
     profile_report(run_step, "main path")
 
+    # --- 6b. paths C and D: the batched alias rescue -------------------------
+    torch.cuda.empty_cache()
+    rescue_launches = rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s)
+
     # --- 7-10. the large-cloud path -----------------------------------------
     del src, tgt
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
-    # Kernels 1-3: launches of the fused path's counted step; 4-6: of path B.
+    # Kernels 1-3: launches of the fused path's counted step; 4-6: of path B;
+    # 7: of path C.
     launches.update({name: large_launches[name] for name in LARGE_KERNELS})
+    launches["lane_nn_wide"] = rescue_launches["lane_nn_wide"]
 
     # --- 11. report -------------------------------------------------------
     kernels = []
@@ -499,6 +595,146 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def wide_pick_check(q, t, tmask, qmask, idx_kernel, idx_plain) -> tuple[float, float]:
+    """Kernel 7 against its plain version where the kernel's fmaf chain and
+    the plain version's cuBLAS product may round differently.  Returns the
+    share of valid rows whose picks are equal, and the largest amount (0 when
+    none) by which a kernel pick's float64 distance exceeds the row's float64
+    minimum over valid targets by more than twice the fp32 error of an
+    entry, gamma_37 * 2 (|q|^2 + max_j |t_j|^2): 37 rounded steps (33 FMAs,
+    the scale, the subtraction, the add of |q|^2, the clamp) on terms of
+    total size at most 2 (|q|^2 + |t_j|^2)."""
+    import torch
+
+    from tpu3dm_torch.ops.nn import lane_slices
+
+    agree = (idx_kernel == idx_plain)[qmask].float().mean().item()
+    excess = 0.0
+    for sl in lane_slices(q.shape[0], q.shape[1] * t.shape[1]):
+        qd, td = q[sl].double(), t[sl].double()
+        qsq, tsq = (qd * qd).sum(-1), (td * td).sum(-1)
+        d = qsq[..., None] + tsq[:, None, :] - 2.0 * torch.bmm(qd, td.transpose(1, 2))
+        d = d.masked_fill(~tmask[sl][:, None, :], float("inf"))
+        pick = torch.gather(d, -1, idx_kernel[sl].long()[..., None])[..., 0]
+        tmax = torch.where(tmask[sl], tsq, 0.0).amax(-1)
+        bound = 2.0 * 37 * 2.0 ** -24 * 2.0 * (qsq + tmax[:, None])
+        over = (pick - d.amin(-1) - bound)[qmask[sl]]
+        if over.numel():
+            excess = max(excess, over.max().item())
+    return agree, excess
+
+
+def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
+    """Paths C (mutual_filter=False) and D (mutual) of fused_register_step
+    with the batched alias rescue over the LANES lanes: launch counts zeroed
+    just before each path's counted call and read just after, every lane
+    gated.  Path C is also checked against the CPU on lanes 0-3, timed,
+    staged and profiled; D is timed once.  Returns path C's launch counts."""
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.registration.fused import (
+        _pn_center,
+        correspondences,
+        icp_polish,
+        rescue_candidates,
+        verify_elect,
+    )
+
+    R = RESCUE_RESTARTS
+    bits = draw_sample_bits(LANES, R, m_s, torch.Generator().manual_seed(3))
+    bits = bits.reshape(LANES, R, 1, m_s)
+    n_icp_searches = -(-ICP_ITERS // ICP_SOLVES_PER_NN)
+
+    def step(mutual, lanes=slice(None), device=None):
+        return run_step(lanes, device, bits, mutual_filter=mutual, rescue_restarts=R,
+                        rescue_modes=RESCUE_MODES, verify_iters=VERIFY_ITERS)
+
+    def staged(mutual):
+        """The step's four stages, each ended by a synchronize (ms)."""
+        marks = [time.time()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.time())
+
+        fc = _pn_center(tgt["points"], tgt["mask"])
+        sp_ = (src["points"] - fc[:, None]).contiguous()
+        tp_ = (tgt["points"] - fc[:, None]).contiguous()
+        qa, valid = correspondences(src["features"], tgt["features"], src["mask"], tgt["mask"],
+                                    tp_, mutual_filter=mutual)
+        mark()
+        cands, ccounts = rescue_candidates(
+            sp_, qa, valid, bits, dist_thresh=cfg.ransac.dist_thresh, iterations=HYPOTHESES,
+            batch_size=HYPOTHESES, approx_score=True, rescue_modes=RESCUE_MODES)
+        mark()
+        Tr, _ = verify_elect(cands, ccounts, sp_, src["mask"], tp_, tgt["mask"], tgt["normals"],
+                             dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+                             verify_iters=VERIFY_ITERS, rescue_modes=RESCUE_MODES)
+        mark()
+        icp_polish(Tr, sp_, src["mask"], tp_, tgt["mask"], tgt["normals"],
+                   icp_thresh=cfg.icp.dist_thresh, icp_iterations=ICP_ITERS,
+                   icp_solves_per_nn=ICP_SOLVES_PER_NN)
+        mark()
+        return np.diff(marks) * 1e3
+
+    out = {}
+    for name, mutual in (("C", False), ("D", True)):
+        step(mutual)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        T_gpu, fit, _ = step(mutual)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        counts = {k: v.launches for k, v in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # One correspondence search, one score launch a restart (one chunk
+        # each), 8 annealed solves + 1 grading search over all candidates,
+        # then the ICP polish's searches.
+        expect = {"lane_mutual": int(mutual), "lane_nn_wide": int(not mutual), "ransac_score": R,
+                  "lane_nn_smalld": VERIFY_ITERS + 1 + n_icp_searches}
+        if any(counts[k] != v for k, v in expect.items()):
+            fail(f"path {name} launches {counts}, expected {expect}")
+        rot, rmse_true = fused_gate(T_gpu, T_true, mu, M2)
+        if rot.max() >= 2.0 or rmse_true.max() >= 0.1:
+            fail(f"path {name} quality gate: worst lane rot {rot.max():.3f} deg, "
+                 f"rmse {rmse_true.max():.4f}")
+        line = (f"path {name} (rescue {R} restarts x {RESCUE_MODES} modes, {VERIFY_ITERS} "
+                f"verification solves, mutual_filter={mutual}): {LANES} lanes, counted call "
+                f"{first_s * 1e3:.1f} ms; worst lane rot {rot.max():.4f} deg, rmse "
+                f"{rmse_true.max():.5f}, fitness min {fit.min().item():.3f}; peak memory "
+                f"{peak:.2f} GiB; launches { {k: v for k, v in counts.items() if v} }")
+        out[name] = counts
+        if mutual:
+            log(line)
+            continue
+        T_cpu, _, _ = step(mutual, slice(0, 4), "cpu")
+        ref_rot, ref_t = apart(T_gpu[:4], T_cpu)
+        if ref_rot >= 0.5 or ref_t >= 0.02:
+            fail(f"path {name}: GPU and CPU runs of lanes 0-3 differ: rot {ref_rot:.4f} deg, "
+                 f"t {ref_t:.4g}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            step(mutual)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        step_s = float(np.median(times))
+        stages = np.median(np.stack([staged(mutual) for _ in range(3)]), axis=0)
+        log(line)
+        log(f"path {name}: step {step_s * 1e3:.1f} ms median of 3 -> {LANES / step_s:.1f} "
+            f"pairs/s; stages (ms, synchronized, median of 3): correspondences "
+            f"{stages[0]:.1f}, RANSAC restarts {stages[1]:.1f}, dedup + verification + election "
+            f"{stages[2]:.1f}, ICP polish {stages[3]:.1f}; lanes 0-3 vs CPU: rot "
+            f"{ref_rot:.4f} deg, t {ref_t:.3g}")
+        profile_report(lambda: step(mutual), f"path {name}")
+    return out["C"]
 
 
 def fp32_score_case(sd, td, rc) -> None:
@@ -713,8 +949,8 @@ def large_phases(dev, results: dict) -> dict:
         nq, nt, d = valid_count(qmask), valid_count(tmask), q.shape[1]
         if d < 8:  # fp32 instructions: 3 subtractions, 3 squares, 3 adds (bias first)
             work = (3.0 * d * nq * nt, PEAK_FP32_OPS)
-        else:  # d FMAs, the -2 scale and the subtraction
-            work = ((d + 2.0) * nq * nt, PEAK_FP32_OPS)
+        else:  # d FMAs, then one FMA of the -2 scale with |t|^2
+            work = ((d + 1.0) * nq * nt, PEAK_FP32_OPS)
         r = dict(
             agree=agree, max_abs_err=err,
             ms=cuda_ms(lambda: tnn.nn_search_tiled(q, t, None, tmask), reps),

@@ -18,7 +18,7 @@ from tpu3dm_torch.ops import nn as tnn
 from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score
 
 ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "ransac_score",
-               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse"}
+               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide"}
 
 
 @pytest.fixture
@@ -33,6 +33,7 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     x = torch.zeros(1, 8, 3)
     nn_lane.nn_search_lane(x, x)
     f = torch.rand(1, 8, 33)
+    nn_lane.nn_search_lane(f, f)
     nn_lane.nn_mutual_mask_lane(f, f)
     ransac_score.score_features(torch.zeros(1, 4, 16), torch.zeros(1, 4),
                                 torch.zeros(1, 8, 16), torch.zeros(1, 8),
@@ -53,6 +54,8 @@ def test_wrappers_reject_other_devices():
         nn_lane.nn_search_lane(x, x)
     f = torch.zeros(1, 8, 33, device="meta")
     with pytest.raises(ValueError):
+        nn_lane.nn_search_lane(f, f)
+    with pytest.raises(ValueError):
         nn_lane.nn_mutual_mask_lane(f, f)
     with pytest.raises(ValueError):
         ransac_score.score_features(
@@ -71,8 +74,8 @@ def test_wrappers_reject_other_devices():
 def test_wrappers_check_shapes():
     with pytest.raises(ValueError):
         nn_lane.nn_search_lane(torch.zeros(8, 3), torch.zeros(8, 3))
-    with pytest.raises(NotImplementedError):
-        nn_lane.nn_search_lane(torch.zeros(1, 8, 16), torch.zeros(1, 8, 16))
+    with pytest.raises(ValueError):  # one target lane per query lane
+        nn_lane.nn_search_lane(torch.zeros(2, 8, 16), torch.zeros(1, 8, 16))
     with pytest.raises(ValueError):
         ransac_score.score_features(torch.zeros(1, 4, 15), torch.zeros(1, 4),
                                     torch.zeros(1, 8, 15), torch.zeros(1, 8),
@@ -167,6 +170,56 @@ def test_ransac_score_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+def test_lane_nn_wide_kernel_matches_plain(cuda_device):
+    """Kernel 7: an fmaf chain against a cuBLAS product, as kernel 5: picks
+    equal on >= 99.9% of rows, distances within 1e-5 relative to
+    |q|^2 + |t|^2, every pick a valid target."""
+    rng = np.random.default_rng(8)
+    q = torch.tensor(rng.random((3, 700, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.random((3, 1100, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    tm = torch.tensor(rng.random((3, 1100)) > 0.1, device=cuda_device)
+    tm[1] = False
+    tm[1, 5] = True  # one valid target in lane 1
+    before = KERNELS["lane_nn_wide"].launches
+    d2k, idxk = nn_lane.nn_search_lane(q, t, None, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(q, t, None, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_nn_wide"].launches == before + 1
+    assert (idxk == idxp).float().mean() >= 0.999
+    assert (idxk[1] == 5).all()
+    scale = (q * q).sum(-1).max() + (t * t).sum(-1).max()
+    assert (d2k - d2p).abs().max() <= 1e-5 * scale
+    assert torch.gather(tm, 1, idxk.long()).all()
+
+
+@pytest.mark.gpu
+def test_lane_nn_kernel_candidate_groups_match_copied_targets(cuda_device):
+    """The rescue's verification: C candidate moves of a lane's source are
+    C * M query rows of that lane ([B, C * M, 3] against [B, N, 3]); the same
+    search on C copies of the targets gives the same bits."""
+    rng = np.random.default_rng(9)
+    B, C, M, N = 3, 4, 300, 500
+    q = torch.tensor(rng.normal(size=(B, C * M, 3)), dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.normal(size=(B, N, 3)), dtype=torch.float32, device=cuda_device)
+    tm = torch.tensor(rng.random((B, N)) > 0.2, device=cuda_device)
+    d2k, idxk = nn_lane.nn_search_lane(q, t, None, tm)
+    d2c, idxc = nn_lane.nn_search_lane(q.reshape(B * C, M, 3), t.repeat_interleave(C, 0), None,
+                                       tm.repeat_interleave(C, 0))
+    torch.cuda.synchronize()
+    assert torch.equal(idxk.reshape(B * C, M), idxc) and torch.equal(d2k.reshape(B * C, M), d2c)
+
+
+@pytest.mark.gpu
+def test_lane_nn_kernels_take_only_their_widths(cuda_device):
+    """Kernel 1 is built for d = 3, kernel 7 for 8 <= d <= 64; other widths
+    raise on CUDA rather than run the plain version."""
+    for d in (5, tnn.WIDE_MAX_D + 1):
+        x = torch.zeros(1, 8, d, device=cuda_device)
+        with pytest.raises(NotImplementedError):
+            nn_lane.nn_search_lane(x, x)
+
+
+@pytest.mark.gpu
 def test_fused_register_step_cuda_matches_cpu(cuda_device):
     """The whole slice on the card against the plain versions on the CPU,
     same inputs and sample bits: same poses (rotation within 0.05 deg)."""
@@ -195,6 +248,12 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert all(KERNELS[n].launches > before[n]
                for n in ("lane_nn_smalld", "lane_mutual", "ransac_score"))
+    _assert_close_poses(Tg, Tc, T_true)
+
+
+def _assert_close_poses(Tg, Tc, T_true):
+    """Card against CPU: rotation within 0.05 deg, translation within 5e-3,
+    and the card's poses within 2 deg of T_true."""
     Tg, Tc = Tg.cpu().double(), Tc.double()
     fro = torch.linalg.matrix_norm(Tg[:, :3, :3] - Tc[:, :3, :3])
     assert torch.rad2deg(2 * torch.asin(fro / (2 * 2 ** 0.5))).max() < 0.05
@@ -202,6 +261,45 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     M = Tg[:, :3, :3].numpy() @ T_true[:3, :3].T
     rot = np.degrees(np.arccos(np.clip((np.trace(M, axis1=1, axis2=2) - 1) / 2, -1, 1)))
     assert rot.max() < 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mutual", [True, False])
+def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual):
+    """One small rescue step (2 restarts, 6 modes, 8 verification solves)
+    on the card against the plain versions on the CPU, same sample bits."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.fused import fused_register_step
+    from tpu3dm_torch.registration.hypotheses import sample_row_count
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    sp, tp, T_true = make_benchmark_pair(8000, seed=3, sigma=0.01)
+    s = preprocess_points(sp, cfg.preprocess, device="cpu").down
+    t = preprocess_points(tp, cfg.preprocess, device="cpu").down
+    B, K, R = 2, 1024, 2
+    args = [x[None].expand(B, *x.shape) for c in (s, t)
+            for x in (c.points, c.features, c.mask, c.normals)]
+    bits = draw_sample_bits(B, R, sample_row_count(s.capacity, K),
+                            torch.Generator().manual_seed(2)).reshape(B, R, 1, -1)
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=K, ransac_batch=K, icp_iterations=8, icp_solves_per_nn=4,
+              approx_score=True, mutual_filter=mutual, rescue_restarts=R, rescue_modes=6,
+              verify_iters=8)
+    before = {n: k.launches for n, k in KERNELS.items()}
+    Tg, _, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, **kw)
+    Tc, _, _ = fused_register_step(*args, bits, device="cpu", **kw)
+    torch.cuda.synchronize()
+    used = "lane_mutual" if mutual else "lane_nn_wide"
+    unused = "lane_nn_wide" if mutual else "lane_mutual"
+    assert KERNELS[used].launches == before[used] + 1
+    assert KERNELS[unused].launches == before[unused]
+    assert KERNELS["ransac_score"].launches == before["ransac_score"] + R
+    # 8 annealed solves + 1 grading search over all candidates, 2 ICP searches
+    assert KERNELS["lane_nn_smalld"].launches == before["lane_nn_smalld"] + 9 + 2
+    _assert_close_poses(Tg, Tc, T_true)
 
 
 @pytest.mark.gpu

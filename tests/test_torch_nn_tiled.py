@@ -7,9 +7,8 @@ may contract a multiply and an add into one FMA where PyTorch rounds each
 step, so distances agree to the last bits, and indices wherever no two
 targets tie within that rounding.
 
-The JAX ``kd_perm`` calls the native C++ partition when it is built, which
-groups points differently from its NumPy recursion; these tests turn the
-native tier off so both packages run the same recursion.
+The JAX ``kd_perm`` calls its native C++ partition, its default; the port
+calls its own copy of that C++.
 """
 
 import jax.numpy as jnp
@@ -23,11 +22,6 @@ from tpu3dm.ops import nn as jnn
 from tpu3dm.ops import nn_sparse as jsp
 from tpu3dm_torch.ops import nn as pnn
 from tpu3dm_torch.ops import nn_sparse as psp
-
-
-@pytest.fixture(autouse=True)
-def _numpy_kd_perm(monkeypatch):
-    monkeypatch.setattr(tpu3dm.native, "kd_perm", lambda *a, **k: None)
 
 
 def _t(a):
@@ -125,6 +119,9 @@ def test_nn_mutual_both_sides_of_dense_max(n):
 
 
 def test_kd_perm_and_pad_sorted_equal_jax():
+    """The C++ partitions of both packages (JAX's native tier, the port's
+    csrc/host.cpp) give the same permutation."""
+    assert tpu3dm.native.available()
     pts = dental_arch_cloud(9000, seed=4).astype(np.float32)
     for block in (128, 512):
         perm = psp.kd_perm(pts, block)

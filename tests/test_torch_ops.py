@@ -72,12 +72,82 @@ def test_nn_search_lane_batched_matches_jax_vmap():
     np.testing.assert_allclose(d2p.numpy(), np.asarray(d2l), atol=1e-4)
 
 
+def test_nn_search_lane_candidate_rows_match_copied_targets_and_jax():
+    """The rescue's verification searches C candidate moves of a lane's source
+    against that lane's one target as C * M query rows ([B, C * M, 3] against
+    [B, N, 3]).  Bit-equal to the same search on C copies of the targets, and
+    to JAX's search vmapped over lanes and candidates (d2 within 1e-4, as above)."""
+    rng = np.random.default_rng(6)
+    B, C, M, N = 2, 3, 70, 150
+    q = rng.normal(size=(B, C, M, 3)).astype(np.float32)
+    t = rng.normal(size=(B, N, 3)).astype(np.float32)
+    tm = rng.random((B, N)) > 0.2
+    d2g, idxg = nn_lane.nn_search_lane(_t(q).reshape(B, C * M, 3), _t(t), None, _t(tm))
+    d2c, idxc = nn_lane.nn_search_lane(_t(q).reshape(B * C, M, 3), _t(t).repeat_interleave(C, 0),
+                                       None, _t(tm).repeat_interleave(C, 0))
+    assert torch.equal(idxg.reshape(B * C, M), idxc) and torch.equal(d2g.reshape(B * C, M), d2c)
+    one = lambda a, b, c: jlane.nn_search_lane(a, b, None, c, interpret=True)  # noqa: E731
+    d2l, idxl = jax.vmap(jax.vmap(one, in_axes=(0, None, None)))(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(tm)
+    )
+    np.testing.assert_array_equal(idxg.reshape(B, C, M).numpy(), np.asarray(idxl))
+    np.testing.assert_allclose(d2g.reshape(B, C, M).numpy(), np.asarray(d2l), atol=1e-4)
+
+
 def test_nn_search_lane_ties_go_to_smaller_index():
     t = np.array([[0, 0, 1], [0, 0, -1], [0, 0, 1], [5, 5, 5]], np.float32)
     q = np.zeros((2, 3), np.float32)
     d2, idx = nn_lane.nn_search_lane(_t(q)[None], _t(t)[None])
     np.testing.assert_array_equal(idx[0].numpy(), [0, 0])
     np.testing.assert_allclose(d2[0].numpy(), [1.0, 1.0])
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: 33-D NN per lane (the TPU's _lane_nn_mxu_kernel).  Tolerance:
+# idx exact on random features (no two targets within rounding of each
+# other); d2 within 2e-5 absolute: |t|^2 - 2 q.t + |q|^2 at |q|^2 ~ 33 with
+# the dot summed in another order (XLA's, torch's), as in
+# tests/test_torch_nn_tiled.py.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,nt", [(256, 256), (200, 300), (37, 129)])
+def test_nn_search_lane_wide_matches_jax(nq, nt):
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(nq, 33)).astype(np.float32)
+    t = rng.normal(size=(nt, 33)).astype(np.float32)
+    tmask = rng.random(nt) > 0.2
+    d2l, idxl = jlane.nn_search_lane(jnp.asarray(q), jnp.asarray(t), None, jnp.asarray(tmask),
+                                     interpret=True)
+    d2d, idxd = jnn.nn_search_dense(jnp.asarray(q), jnp.asarray(t), None, jnp.asarray(tmask))
+    d2p, idxp = nn_lane.nn_search_lane(_t(q)[None], _t(t)[None], None, _t(tmask)[None])
+    assert idxp.dtype == torch.int32 and d2p.dtype == torch.float32
+    np.testing.assert_array_equal(idxp[0].numpy(), np.asarray(idxl))
+    np.testing.assert_array_equal(idxp[0].numpy(), np.asarray(idxd))
+    np.testing.assert_allclose(d2p[0].numpy(), np.asarray(d2l), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(d2p[0].numpy(), np.asarray(d2d), rtol=0, atol=2e-5)
+    assert tmask[idxp[0].numpy()].all()
+
+
+def test_nn_search_lane_wide_batched_matches_jax_vmap():
+    """Lanes of their own masks, one lane with a single valid target, shapes
+    that are multiples of neither 8 nor the TPU's 256-wide target tile."""
+    rng = np.random.default_rng(9)
+    B, m, n = 4, 123, 301
+    q = (rng.random((B, m, 33)) * 50).astype(np.float32)
+    t = (rng.random((B, n, 33)) * 50).astype(np.float32)
+    tm = rng.random((B, n)) > 0.3
+    tm[2] = False
+    tm[2, 77] = True
+    d2l, idxl = jax.vmap(lambda a, b, c: jlane.nn_search_lane(a, b, None, c, interpret=True))(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(tm)
+    )
+    d2p, idxp = nn_lane.nn_search_lane(_t(q), _t(t), None, _t(tm))
+    np.testing.assert_array_equal(idxp.numpy(), np.asarray(idxl))
+    assert (idxp[2] == 77).all()
+    # |q|^2 ~ 2e4 here: 2e-5 relative to the row's |q|^2 + |t|^2.
+    scale = (q * q).sum(-1) + (t * t).sum(-1).max(-1, keepdims=True)
+    assert (np.abs(d2p.numpy() - np.asarray(d2l)) <= 2e-5 * scale).all()
 
 
 # ---------------------------------------------------------------------------

@@ -32,21 +32,25 @@ def test_port_imports_no_jax(path):
 
 def test_import_needs_no_triton_nvcc_or_gpu():
     """Every module imports in a process where triton cannot be imported and
-    nvcc cannot be found, and importing loads no JAX and builds nothing."""
+    neither nvcc nor a host C++ compiler can be found, and importing loads
+    no JAX and builds nothing."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['triton'] = None\n"
         "import tpu3dm_torch\n"
         "for m in pkgutil.walk_packages(tpu3dm_torch.__path__, 'tpu3dm_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from tpu3dm_torch.csrc import KERNELS\n"
-        "assert set(KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score',\n"
-        "                        'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse'}, KERNELS\n"
-        "assert all(k._fn is None for k in KERNELS.values())\n"
+        "from tpu3dm_torch import csrc\n"
+        "assert set(csrc.KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score',\n"
+        "                             'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse',\n"
+        "                             'lane_nn_wide'}, csrc.KERNELS\n"
+        "assert all(k._fn is None for k in csrc.KERNELS.values())\n"
+        "assert csrc._host_lib is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu3dm')]\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent", PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent", PYTHONPATH=str(ROOT),
+               CXX="/nonexistent/c++")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -68,8 +72,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     z3 = np.zeros((1, 8, 3), np.float32)
     f = np.zeros((1, 8, 33), np.float32)
     m = np.ones((1, 8), bool)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        fused_register_step(z3, f, m, z3, z3, f, m, z3)
+    for kw in ({}, {"mutual_filter": False}, {"rescue_restarts": 2},
+               {"mutual_filter": False, "rescue_restarts": 3, "rescue_modes": 2}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fused_register_step(z3, f, m, z3, z3, f, m, z3, **kw)
     pts = np.random.default_rng(1).normal(size=(600, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         register_arrays_large(pts, pts)

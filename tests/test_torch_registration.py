@@ -185,10 +185,12 @@ def test_ransac_pair_step_matches_jax(arch_pair):
 
 
 def test_ransac_pair_step_rejects_unported_modes():
+    """Two-stage scoring, the adaptive budget and the gather sampler are not
+    ported (tests/test_torch_rescue.py holds the two-mode and N-mode steps)."""
     z = torch.zeros(1, 8, 3)
     v = torch.ones(1, 8, dtype=torch.bool)
-    for kw in ({"two_mode": True}, {"score_subset": 4}, {"adapt_iterations": 99},
-               {"sample_mode": "gather"}):
+    for kw in ({"score_subset": 4}, {"adapt_iterations": 99}, {"sample_mode": "gather"},
+               {"two_mode": True, "score_subset": 4}):
         with pytest.raises(NotImplementedError):
             p_ransac(z, z, v, dist_thresh=0.45, iterations=16, batch_size=16, **kw)
 
@@ -266,10 +268,13 @@ def test_fused_register_step_position_invariant(arch_pair):
 
 
 def test_fused_register_step_rejects_unported_options():
+    """Only nn_impl="lane" is ported, with or without the mutual filter and
+    the rescue (tests/test_torch_rescue.py)."""
     z3 = np.zeros((1, 8, 3), np.float32)
     f = np.zeros((1, 8, 33), np.float32)
     m = np.ones((1, 8), bool)
     args = (z3, f, m, z3, z3, f, m, z3)
-    for kw in ({"nn_impl": "values_pk"}, {"rescue_restarts": 2}, {"mutual_filter": False}):
+    for kw in ({"nn_impl": "values_pk"}, {"nn_impl": "dense", "rescue_restarts": 2},
+               {"nn_impl": "values", "mutual_filter": False}):
         with pytest.raises(NotImplementedError):
             pfused.fused_register_step(*args, device="cpu", **kw)

@@ -1,15 +1,20 @@
-"""Hand-written Hopper kernels: built with nvcc, bound with ctypes.
+"""Hand-written Hopper kernels, built with nvcc, and the host C++ library,
+both bound with ctypes.
 
 Each ``*.cu`` file in this directory compiles into one shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``).
 Every C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns ``cudaGetLastError()``.
+``host.cpp`` (the KD partition and the voxel grid of the large-cloud path)
+compiles with the host C++ compiler (``$CXX``, else ``c++``) and the JAX
+package's native-tier flags, so its results equal that tier's.
 
 Libraries are built on first use into ``build/`` beside the sources, under a
 name that hashes the source, the shared ``*.cuh`` headers and the flags, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is.  ``build()``
-compiles several sources at once, one nvcc process each.  Importing this module builds nothing and needs
-neither nvcc nor a GPU.
+edited source is rebuilt and an unchanged one is loaded as it is.  ``build()``
+compiles several sources at once, one compiler process each; a failed build
+raises.  Importing this module builds nothing and needs neither a compiler
+nor a GPU.
 
 A :class:`Kernel` is one C entry point.  Its ``launches`` counter goes up by
 one each time a wrapper launches it, so a run can show that its path went
@@ -21,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -32,6 +38,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The JAX package's native Makefile flags (native/Makefile), with -shared.
+HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread", "-shared")
+HOST_SOURCE = "host.cpp"
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -49,35 +58,48 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "c++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found: set CXX")
+    return found
+
+
+def _flags(source: str) -> tuple[str, ...]:
+    return HOST_FLAGS if source.endswith(".cpp") else NVCC_FLAGS
+
+
 def library_path(source: str) -> Path:
     """Where the library of ``source`` (a file name in this directory) goes.
     The name hashes the shared headers too, so editing one rebuilds."""
     h = hashlib.sha256()
     for path in [SRC_DIR / source, *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(sources=None) -> dict[str, str]:
     """Compile every source that has no current library, all at once.
 
-    ``sources`` defaults to every ``*.cu`` here.  Returns the compiler's
-    report (ptxas registers, shared memory, spills) for each source built
-    now; raises RuntimeError with nvcc's output if any build fails.
+    ``sources`` defaults to every ``*.cu`` and ``*.cpp`` here.  Returns the
+    compiler's report (for the kernels: ptxas registers, shared memory,
+    spills) for each source built now; raises RuntimeError with the
+    compiler's output if any build fails.
     """
     if sources is None:
-        sources = sorted(p.name for p in SRC_DIR.glob("*.cu"))
+        sources = sorted(p.name for p in [*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cpp")])
     todo = [(src, library_path(src)) for src in sources]
     todo = [(src, out) for src, out in todo if not out.exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
+    compilers = {src: (_cxx() if src.endswith(".cpp") else _nvcc()) for src, _ in todo}
     jobs = []
     for src, out in todo:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / src)]
+        cmd = [compilers[src], *_flags(src), "-o", str(tmp), str(SRC_DIR / src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -86,7 +108,7 @@ def build(sources=None) -> dict[str, str]:
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {src} (exit {proc.returncode}):\n{log}")
+            failures.append(f"{compilers[src]} failed for {src} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
         out.with_suffix(".log").write_text(log)
@@ -131,6 +153,28 @@ class Kernel:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+_host_lib: ctypes.CDLL | None = None
+
+
+def host_library() -> ctypes.CDLL:
+    """The host C++ library (``host.cpp``), built and loaded at first use."""
+    global _host_lib
+    if _host_lib is None:
+        path = library_path(HOST_SOURCE)
+        if not path.exists():
+            build([HOST_SOURCE])
+        lib = ctypes.CDLL(str(path))
+        f64 = ctypes.POINTER(ctypes.c_double)
+        lib.t3n_voxel_downsample.restype = ctypes.c_long
+        lib.t3n_voxel_downsample.argtypes = [f64, ctypes.c_long, ctypes.c_double, f64,
+                                             ctypes.c_long]
+        lib.t3n_kd_perm.restype = None
+        lib.t3n_kd_perm.argtypes = [f64, ctypes.c_long, ctypes.c_long,
+                                    ctypes.POINTER(ctypes.c_long)]
+        _host_lib = lib
+    return _host_lib
 
 
 # Pair lanes per launch: the kernels put the lane on the grid's y axis.

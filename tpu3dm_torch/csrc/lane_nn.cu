@@ -1,7 +1,11 @@
-// Top-1 3-D nearest neighbour per pair lane.
+// Top-1 nearest neighbour per pair lane: two kernels.
 //
-// Replaces the TPU kernel tpu3dm/ops/nn_lane.py:_lane_nn_smalld_kernel (the ICP
-// correspondence search of registration/fused.py with nn_impl="lane").
+// t3t_lane_nn_smalld replaces the TPU kernel
+// tpu3dm/ops/nn_lane.py:_lane_nn_smalld_kernel (d < 8; the 3-D ICP and
+// rescue-verification searches of registration/fused.py with nn_impl="lane").
+// The verification's C candidate poses of a lane are C * M query rows of that
+// lane, so the kernel sees [B, C * M, 3] queries against [B, N, 3] targets:
+// no copy of the targets and no group argument.
 //
 // For pair lane b and query row i, over every target j of the same lane:
 //   d2(i, j) = bias[b, j] + sum_d (q[b, i, d] - t[b, j, d])^2
@@ -21,10 +25,29 @@
 // Rounding: biased_sq_dist3 (sqdist3.cuh, shared with nn_tiled.cu) rounds
 // each difference, square and sum on its own in the plain version's order, so
 // the two agree bit for bit.
+//
+// t3t_lane_nn_wide replaces tpu3dm/ops/nn_lane.py:_lane_nn_mxu_kernel (d >= 8:
+// the 33-D FPFH correspondences of fused_register_step with
+// mutual_filter=False):
+//   p(b, i, j) = tsq[b, j] - 2 (q[b, i] . t[b, j])
+// with tsq = |t|^2, or BIG for a masked target; the wrapper adds |q|^2 and
+// clamps at 0, as the TPU wrapper does (nn_lane.py:254-255).  The TPU kernel
+// runs the cross term on the MXU over 256-wide target tiles; here each block
+// is one 64-query tile of one lane running nn_wide_block (nn_wide.cuh, the
+// body of nn_tiled.cu's d >= 8 kernel), the pair lane on the grid's y axis.
+// What bounds it on the H100: operations.  At B = 2048, M = N = 1024, d = 33
+// a search is 2.1 G entries of 34 fp32 instructions (33 FMAs, then one fmaf
+// of the -2 scale with tsq), ~2.2 ms at the card's fp32 rate, against ~550 MB of inputs
+// (0.17 ms at its memory rate).
+// The design keeps the entries in registers (a 4 x 4 tile a thread, fed by
+// float4 shared loads) and the lane's targets stream through shared memory
+// in 64-row tiles; no tensor cores, since the contract is fp32 and the port
+// keeps TF32 off.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "nn_wide.cuh"
 #include "sqdist3.cuh"
 
 namespace {
@@ -78,6 +101,15 @@ lane_nn_smalld_kernel(const float* __restrict__ q, const float* __restrict__ t,
   }
 }
 
+__global__ void __launch_bounds__(kWideThreads)
+lane_nn_wide_kernel(const float* __restrict__ q, const float* __restrict__ t,
+                    const float* __restrict__ tsq, float* __restrict__ part_out,
+                    int* __restrict__ idx_out, int M, int N, int D) {
+  const size_t lane = blockIdx.y;
+  nn_wide_block(q + lane * M * D, t + lane * N * D, tsq + lane * N, part_out + lane * M,
+                idx_out + lane * M, M, N, D, blockIdx.x * kWideTile);
+}
+
 }  // namespace
 
 // q [B, M, 3], t [B, N, 3], bias [B, N] float32, contiguous; writes
@@ -89,5 +121,17 @@ extern "C" int t3t_lane_nn_smalld(const float* q, const float* t, const float* b
   if (B <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((M + kThreads - 1) / kThreads, B);
   lane_nn_smalld_kernel<<<grid, kThreads, 0, stream>>>(q, t, bias, d2, idx, M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q [B, M, d], t [B, N, d], tsq [B, N] float32, contiguous, 8 <= d <= 64;
+// writes part [B, M] = min_j (tsq[b, j] - 2 q[b, i].t[b, j]) float32 and
+// idx [B, M] int32.  Launches on ``stream`` and returns cudaGetLastError().
+extern "C" int t3t_lane_nn_wide(const float* q, const float* t, const float* tsq, float* part,
+                                int* idx, int B, int M, int N, int d, cudaStream_t stream) {
+  if (B <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
+  if (d < 1 || d > kWideMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + kWideTile - 1) / kWideTile, B);
+  lane_nn_wide_kernel<<<grid, kWideThreads, 0, stream>>>(q, t, tsq, part, idx, M, N, d);
   return static_cast<int>(cudaGetLastError());
 }

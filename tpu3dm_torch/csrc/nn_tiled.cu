@@ -16,10 +16,12 @@
 //   t3t_nn_tiled_wide  <-  _nn_kernel (d >= 8: the FPFH searches of
 //     nn_mutual at 8192 x 8192 x 33):
 //       p(i, j) = tsq[j] - 2 (q_i . t_j)
-//     with tsq = |t_j|^2, or BIG for a masked target.  The dot is an fmaf
-//     chain over k in order; the plain version's is a cuBLAS fp32 product, so
-//     the two agree up to the dot's summation order.  The wrapper adds |q_i|^2
-//     and clamps at 0 after the search, as nn_search_pallas does.
+//     with tsq = |t_j|^2, or BIG for a masked target; the tile is
+//     nn_wide_block (nn_wide.cuh, shared with lane_nn.cu).  The dot is an
+//     fmaf chain over k in order; the plain version's is a cuBLAS fp32
+//     product, so the two agree up to the dot's summation order.  The
+//     wrapper adds |q_i|^2 and clamps at 0 after the search, as
+//     nn_search_pallas does.
 //
 // Both keep, per query, the running minimum and its FIRST index: a strict `<`
 // over ascending targets, which is the TPU kernel's rule (first argmin inside
@@ -36,8 +38,8 @@
 // staged as (x, y, z, bias) rows; each thread holds QPT queries in
 // registers and reads each staged target as a shared-memory broadcast, so a
 // target load serves QPT entries; for small query sets QPT = 1 and 64-thread
-// blocks keep ~128 blocks on the card's 132 SMs.  wide does d + 2 per entry
-// (d FMAs, the scale, the subtraction; 8192^2 x 33: 2.2e9 FMAs against 2 MB
+// blocks keep ~128 blocks on the card's 132 SMs.  wide does d + 1 per entry
+// (d FMAs, then one fmaf of the -2 scale with tsq; 8192^2 x 33: 2.2e9 FMAs against 2 MB
 // moved): 64 x 64 tiles of queries and targets, transposed in shared memory,
 // each thread a 4 x 4 register tile, so every pair of float4 shared loads
 // feeds 16 FMAs.  No tensor cores: the contract is fp32 (TF32 is off in the
@@ -47,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "nn_wide.cuh"
 #include "sqdist3.cuh"
 
 namespace {
@@ -112,97 +115,11 @@ __global__ void nn_smalld_kernel(const float* __restrict__ q, const float* __res
 
 // ------------------------------------------------------------------ wide --
 
-constexpr int kWideTile = 64;     // queries and targets per tile
-constexpr int kWideStride = 68;   // padded row of the transposed tiles (float4 aligned)
-constexpr int kWideMaxD = 64;
-constexpr int kWideThreads = 256; // 16 x 16 threads, a 4 x 4 tile each
-
 __global__ void __launch_bounds__(kWideThreads)
 nn_wide_kernel(const float* __restrict__ q, const float* __restrict__ t,
                const float* __restrict__ tsq, float* __restrict__ part_out,
                int* __restrict__ idx_out, int M, int N, int D) {
-  __shared__ __align__(16) float qs[kWideMaxD * kWideStride];
-  __shared__ __align__(16) float ts[kWideMaxD * kWideStride];
-  __shared__ float tsq_s[kWideTile];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // target columns tx*4 .. tx*4+3 of a tile
-  const int ty = tid / 16;  // query rows ty*4 .. ty*4+3
-  const int q0 = blockIdx.x * kWideTile;
-
-  // The block's queries, transposed: qs[k][r] = q[q0 + r, k].
-  for (int x = tid; x < kWideTile * D; x += kWideThreads) {
-    const int r = x / D, k = x % D;
-    qs[k * kWideStride + r] = q0 + r < M ? q[static_cast<size_t>(q0 + r) * D + k] : 0.f;
-  }
-
-  float best[4];
-  int best_j[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    best[a] = CUDART_INF_F;
-    best_j[a] = 0;
-  }
-
-  for (int base = 0; base < N; base += kWideTile) {
-    __syncthreads();
-    for (int x = tid; x < kWideTile * D; x += kWideThreads) {
-      const int r = x / D, k = x % D;
-      ts[k * kWideStride + r] = base + r < N ? t[static_cast<size_t>(base + r) * D + k] : 0.f;
-    }
-    if (tid < kWideTile) tsq_s[tid] = base + tid < N ? tsq[base + tid] : CUDART_INF_F;
-    __syncthreads();
-
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    for (int k = 0; k < D; ++k) {
-      const float4 qa = *reinterpret_cast<const float4*>(&qs[k * kWideStride + ty * 4]);
-      const float4 tb = *reinterpret_cast<const float4*>(&ts[k * kWideStride + tx * 4]);
-      const float qq[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float tt[4] = {tb.x, tb.y, tb.z, tb.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = __fmaf_rn(qq[a], tt[b], acc[a][b]);
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = base + tx * 4 + b;
-      if (j < N) {
-        const float sq = tsq_s[tx * 4 + b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = __fsub_rn(sq, __fmul_rn(2.f, acc[a][b]));
-          if (p < best[a]) {  // this thread's targets ascend: first index kept
-            best[a] = p;
-            best_j[a] = j;
-          }
-        }
-      }
-    }
-  }
-
-  // Merge the 16 threads of a half-warp that share these query rows: the
-  // smaller value wins, the smaller index on a tie.
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best[a], off);
-      const int oj = __shfl_xor_sync(0xffffffffu, best_j[a], off);
-      if (ov < best[a] || (ov == best[a] && oj < best_j[a])) {
-        best[a] = ov;
-        best_j[a] = oj;
-      }
-    }
-    const int i = q0 + ty * 4 + a;
-    if (tx == 0 && i < M) {
-      part_out[i] = best[a];
-      idx_out[i] = best_j[a];
-    }
-  }
+  nn_wide_block(q, t, tsq, part_out, idx_out, M, N, D, blockIdx.x * kWideTile);
 }
 
 }  // namespace

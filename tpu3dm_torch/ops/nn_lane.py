@@ -2,8 +2,11 @@
 
 Two wrappers with the JAX contracts, batched over a leading pair dimension:
 
-  - ``nn_search_lane``: top-1 3-D nearest neighbour (kernel
-    csrc/lane_nn.cu, replacing ``_lane_nn_smalld_kernel``) — the ICP search;
+  - ``nn_search_lane``: top-1 nearest neighbour, on two kernels of
+    csrc/lane_nn.cu: ``t3t_lane_nn_smalld`` for d = 3 (replacing
+    ``_lane_nn_smalld_kernel``) — the ICP and rescue-verification searches —
+    and ``t3t_lane_nn_wide`` for 8 <= d <= 64 (replacing
+    ``_lane_nn_mxu_kernel``) — the non-mutual FPFH correspondences;
   - ``nn_mutual_mask_lane``: forward 33-D NN plus the mutuality test against
     GLOBAL column minima (kernel csrc/lane_mutual.cu, replacing
     ``_lane_mutual_kernel``) — the FPFH correspondence stage.
@@ -21,6 +24,8 @@ from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype,
 from tpu3dm_torch.ops.nn import (
     BIG,
     SMALL_D_MAX,
+    WIDE_MAX_D,
+    _sq_norms,
     lane_slices,
     nn_mutual_mask,
     nn_search_dense,
@@ -29,6 +34,9 @@ from tpu3dm_torch.ops.nn import (
 LANE_NN = Kernel(
     "lane_nn_smalld", "lane_nn.cu", "t3t_lane_nn_smalld",
     [PTR, PTR, PTR, PTR, PTR, INT, INT, INT],
+)
+LANE_NN_WIDE = Kernel(
+    "lane_nn_wide", "lane_nn.cu", "t3t_lane_nn_wide", [PTR] * 5 + [INT] * 4,
 )
 LANE_MUTUAL = Kernel(
     "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual",
@@ -62,38 +70,50 @@ def nn_search_lane(
     query_mask: torch.Tensor | None = None,
     target_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-1 3-D NN per pair lane (the JAX ``nn_search`` contract, batched).
+    """Top-1 NN per pair lane (the JAX ``nn_search`` contract, batched).
 
     Args:
-      query: [B, M, 3] float32; target: [B, N, 3] float32.
+      query: [B, M, d] float32; target: [B, N, d] float32.  On CUDA d = 3 or
+        8 <= d <= 64 (the kernels' widths); other widths raise there.
       query_mask: ignored (masked queries get arbitrary results, as in JAX).
       target_mask: [B, N] bool or None; masked targets never win.
 
     Returns (d2 [B, M] float32, idx [B, M] int32), ties to the smaller index.
+    For d < 8, d2 sums the squared differences; for d >= 8 it is
+    max(min_j (|t_j|^2 - 2 q.t_j) + |q|^2, 0), as in the TPU kernels.
     """
     del query_mask
     _check_batched("nn_search_lane", query, target)
-    if query.shape[-1] >= SMALL_D_MAX:
-        raise NotImplementedError(
-            "nn_search_lane: d >= 8 (the TPU's _lane_nn_mxu_kernel) is not ported"
-        )
     if dispatch("nn_search_lane", query, target, target_mask) == "cpu":
         return nn_search_lane_plain(query, target, None, target_mask)
-    b, m, n = query.shape[0], query.shape[1], target.shape[1]
-    if target_mask is None:
-        bias = torch.zeros((b, n), dtype=torch.float32, device=query.device)
-    else:
-        bias = torch.where(target_mask, 0.0, BIG).to(torch.float32)
-    d2 = torch.empty((b, m), dtype=torch.float32, device=query.device)
-    idx = torch.empty((b, m), dtype=torch.int32, device=query.device)
+    b, m, n, d = query.shape[0], query.shape[1], target.shape[1], query.shape[2]
     where = "nn_search_lane"
     check_dtype(where, torch.float32, query=query, target=target)
-    dev = check_cuda_tensors(where, b, query=query, target=target, bias=bias, d2=d2, idx=idx)
-    LANE_NN.launch(
-        dev, query.data_ptr(), target.data_ptr(), bias.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), b, m, n,
+    out = torch.empty((b, m), dtype=torch.float32, device=query.device)
+    idx = torch.empty((b, m), dtype=torch.int32, device=query.device)
+    if d < SMALL_D_MAX:
+        if d != 3:
+            raise NotImplementedError(f"{where}: below d = {SMALL_D_MAX} the kernel takes d = 3, "
+                                      f"got {d}")
+        if target_mask is None:
+            bias = torch.zeros((b, n), dtype=torch.float32, device=query.device)
+        else:
+            bias = torch.where(target_mask, 0.0, BIG).to(torch.float32)
+        dev = check_cuda_tensors(where, b, query=query, target=target, bias=bias, d2=out, idx=idx)
+        LANE_NN.launch(
+            dev, query.data_ptr(), target.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), idx.data_ptr(), b, m, n,
+        )
+        return out, idx
+    if d > WIDE_MAX_D:
+        raise NotImplementedError(f"{where}: the kernel takes d <= {WIDE_MAX_D}, got {d}")
+    tsq = _sq_norms(target, target_mask)
+    dev = check_cuda_tensors(where, b, query=query, target=target, tsq=tsq, part=out, idx=idx)
+    LANE_NN_WIDE.launch(
+        dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(),
+        out.data_ptr(), idx.data_ptr(), b, m, n, d,
     )
-    return d2, idx
+    return torch.clamp_min(out + torch.sum(query * query, dim=-1), 0.0), idx
 
 
 def nn_mutual_lane_plain(a, b, mask_a=None, mask_b=None):

@@ -1,7 +1,7 @@
 """Block-sparse nearest-neighbour search for large clouds (port of tpu3dm/ops/nn_sparse.py).
 
-Both clouds are KD-partitioned on the host (``kd_perm``, a copy of the JAX
-package's NumPy recursion) and padded to a block multiple with far-away
+Both clouds are KD-partitioned on the host (``kd_perm``: the JAX package's
+native C++ partition, copied into csrc/host.cpp) and padded to a block multiple with far-away
 sentinel rows (``pad_sorted``).  ``candidate_blocks`` ranks, for each query
 block, the target blocks by box-to-box distance (plain PyTorch, as it was
 XLA in JAX) and keeps the w best with an exactness certificate.  The search
@@ -13,10 +13,20 @@ runs ``nn_search_table_plain``, the same arithmetic chunked over query blocks.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype, dispatch
+from tpu3dm_torch.csrc import (
+    INT,
+    PTR,
+    Kernel,
+    check_cuda_tensors,
+    check_dtype,
+    dispatch,
+    host_library,
+)
 from tpu3dm_torch.ops.nn import lane_slices
 
 # Padding sentinel: far enough that padded rows never win a min, small enough
@@ -31,31 +41,17 @@ MAX_BLOCK = 2048  # the kernel's queries per block
 
 def kd_perm(points: np.ndarray, block: int) -> np.ndarray:
     """Permutation grouping points into KD-partition leaves of at most
-    ``block`` points (recursive widest-axis median split, host NumPy).
-
-    The JAX package dispatches to a threaded C++ partition when its native
-    tier is built; that tier groups points differently, so this recursion,
-    its NumPy fallback, is the one the port copies and is compared with.
+    ``block`` points: recursive widest-axis median split, threaded, on the
+    host (``t3n_kd_perm`` of csrc/host.cpp, the JAX package's native
+    partition, which its ``kd_perm`` calls whenever that tier is built).
     """
-    pts = np.asarray(points, dtype=np.float64)
-    out: list[np.ndarray] = []
-
-    def rec(idx: np.ndarray) -> None:
-        if len(idx) <= block:
-            out.append(idx)
-            return
-        p = pts[idx]
-        ax = int(np.argmax(p.max(axis=0) - p.min(axis=0)))
-        nb = len(idx) // block  # how many blocks this span will produce
-        k = (nb // 2) * block if len(idx) % block == 0 else len(idx) // 2
-        if k == 0:
-            k = len(idx) // 2
-        part = np.argpartition(p[:, ax], k)
-        rec(idx[part[:k]])
-        rec(idx[part[k:]])
-
-    rec(np.arange(pts.shape[0]))
-    return np.concatenate(out)
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    out = np.empty(pts.shape[0], dtype=np.int64)
+    host_library().t3n_kd_perm(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), pts.shape[0], int(block),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+    )
+    return out
 
 
 def pad_sorted(points: np.ndarray, block: int) -> np.ndarray:

@@ -239,7 +239,8 @@ def fit_score_gathers(
 
 
 def count_inliers(T, p_all, q_all, valid, thresh_sq: float):
-    """(inlier mask [B, M], count [B]) of one transform per lane."""
+    """(inlier mask [..., M], count [...]) of transforms T [..., 4, 4] on
+    their correspondences p_all, q_all [..., M, 3]."""
     moved = p_all @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
     d2 = torch.sum((moved - q_all) ** 2, dim=-1)
     inl = (d2 < thresh_sq) & valid
@@ -247,10 +248,11 @@ def count_inliers(T, p_all, q_all, valid, thresh_sq: float):
 
 
 def refit_inliers(T, count, p_all, q_all, valid, thresh_sq: float):
-    """Weighted Horn re-fit of each lane's elected transform on all its
-    inliers, kept only where it does not lose inliers.  Returns (T', count')."""
+    """Weighted Horn re-fit of each elected transform (T [..., 4, 4], count
+    [...]) on all its inliers, kept only where it does not lose inliers.
+    Returns (T', count')."""
     inl, _ = count_inliers(T, p_all, q_all, valid, thresh_sq)
     T_ref = fit_rigid_horn(p_all, q_all, inl.to(torch.float32))
     _, count_ref = count_inliers(T_ref, p_all, q_all, valid, thresh_sq)
     better = count_ref >= torch.clamp_min(count, 3)
-    return torch.where(better[:, None, None], T_ref, T), torch.where(better, count_ref, count)
+    return torch.where(better[..., None, None], T_ref, T), torch.where(better, count_ref, count)

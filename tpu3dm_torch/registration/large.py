@@ -6,8 +6,9 @@ clouds, donor normals, then block-sparse ICP at full resolution.  The
 full-resolution search is ``ops.nn_sparse.nn_blocksparse`` (kernel
 csrc/nn_blocksparse.cu on CUDA); the downsampled searches and the donor
 normals go through ``ops.nn.nn_search`` (csrc/nn_tiled.cu above 16M
-entries).  The KD partition of each cloud is host NumPy, done once per
-cloud: the source's blocks move rigidly under ICP and stay compact.
+entries).  The KD partition of each cloud is host C++ (csrc/host.cpp),
+done once per cloud: the source's blocks move rigidly under ICP and stay
+compact.
 
 The sharded path (``mesh``) is not ported.
 """
@@ -28,18 +29,11 @@ from tpu3dm_torch.ops.nn_sparse import kd_perm, nn_blocksparse, pad_sorted
 from tpu3dm_torch.parallel.multipair import f32_square
 from tpu3dm_torch.preprocess.pipeline import down_features
 from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
+from tpu3dm_torch.registration.fused import RESCUE_OVERRIDE_MARGIN, RESCUE_TIE_RATIO
 from tpu3dm_torch.registration.evaluate import evaluate_registration
 from tpu3dm_torch.registration.icp import icp_loop, icp_refine, masked_fit
 from tpu3dm_torch.registration.ransac import global_registration_two_mode
 from tpu3dm_torch.registration.result import RegistrationResult
-
-# The election rule of the JAX package's fused rescue (registration/fused.py):
-# a candidate is near the leader when its RANSAC fitness is at least
-# RESCUE_TIE_RATIO of the best; a far one is eligible only when its verified
-# fitness beats the near ones' best by RESCUE_OVERRIDE_MARGIN.
-RESCUE_TIE_RATIO = 0.85
-RESCUE_OVERRIDE_MARGIN = 1.05
-
 
 @dataclasses.dataclass
 class LargeCloud:

@@ -16,15 +16,13 @@ so tests can hand the port JAX's own bits.  The single-mode
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from tpu3dm_torch.core.cloud import PointCloud
 from tpu3dm_torch.core.config import RansacConfig
 from tpu3dm_torch.ops.compact import compaction_permutation
-from tpu3dm_torch.parallel.multipair import draw_sample_bits, f32_square
+from tpu3dm_torch.parallel.multipair import draw_sample_bits, f32_cos_deg, f32_square
 from tpu3dm_torch.registration.hypotheses import (
     prepare_correspondences,
     rot_cos_planar,
@@ -102,7 +100,7 @@ def ransac_two_mode(
     dev = p_all.device
     thresh_sq = f32_square(dist_thresh)
     conf = np.float32(confidence)
-    cos_thr = float(np.cos(np.float32(mode_angle_deg) * np.float32(math.pi / 180.0)))
+    cos_thr = f32_cos_deg(mode_angle_deg)
     n_chunks = chunk_count(max_iterations, batch_size)
     if sample_bits is None:
         sample_bits = draw_sample_bits(n_chunks, batch_size, 2, generator)
