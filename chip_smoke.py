@@ -15,15 +15,19 @@ Phases (any failure exits non-zero and prints no ok line):
   4. each kernel against its plain version at the main path's shapes (2048
      lanes, M = N = 1024, K = 4096), every lane jittered and thinned on its
      own so that no two lanes hold the same data, with kernel, plain and
-     library-yardstick times and each kernel's bound: kernels 1-3, kernel 7
-     (the 33-D forward NN of path C) and kernel 1 at the rescue's
-     verification shape (VERIFY_CANDIDATES moved sources a lane);
+     library-yardstick times and each kernel's bound: kernels 1-2, kernel 7
+     (the 33-D forward NN of path C), kernel 1 at the rescue's verification
+     shape (VERIFY_CANDIDATES moved sources a lane), both bit-equal to the
+     plain version, and the score's bf16 tensor-core route on bf16 H and F
+     (counts inside the float64 bracket of its rounding, >= 99.9% equal,
+     never more than 1 apart), then its fp32 route on the same values in
+     fp32 tensors (the "ransac_score" row, as this path ran it before);
   5. the main path: fused_register_step over the 2048 lanes (4096
      hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
      search, bf16 score), launch counts zeroed just before and read just
-     after; every lane gated (rotation < 2 deg, RMSE < 0.1 against its
-     T_true); 4 lanes checked against the same step on the CPU; pairs/s
-     and stage times;
+     after (2 lane_nn_smalld, 1 lane_mutual, 1 bf16 score); every lane
+     gated (rotation < 2 deg, RMSE < 0.1 against its T_true); 4 lanes
+     checked against the same step on the CPU; pairs/s and stage times;
   6. one profiled step: the device's busy and idle share, ops by name;
   6b. path C: the same step with mutual_filter=False and the batched alias
      rescue (3 restarts, 6 modes, 8 verification solves), launch counts
@@ -37,17 +41,21 @@ Phases (any failure exits non-zero and prints no ok line):
      gated as bench.py gates it (rotation < 2 deg, alignment RMSE < 0.01
      against T_true), then once more stage by stage; one profiled call of A;
   8. kernels 3-6 against their plain versions at those paths' shapes: the
-     fp32 RANSAC score of B's first hypothesis chunk (one lane, 4096
-     hypotheses, its correspondences, no bf16 rounding), the tiled 3-D search
+     fp32 RANSAC score of B's first hypothesis chunk (the
+     "ransac_score_fp32_1lane" row: one lane, 4096 hypotheses, its
+     correspondences, no bf16 rounding: the fp32 route, which paths A and B
+     launch and the bf16 one never), the tiled 3-D search
      at 1,000,448 x 1024 (A's donor normals) and 8192 x 8192 (B's
      downsampled ICP), the tiled 33-D search at 8192 x 8192 (B's FPFH), the
      block-sparse search at 1,000,448 x 1,000,448 with the candidate table of
      A's first full-resolution ICP iteration;
   9. path A at 40,000 points on the card and on the CPU (plain versions)
      with the same sample bits: rotation within 0.5 deg, translation 0.02;
- 10. one JSON line of per-kernel numbers (launches: kernels 1-3 from the
-     fused step's counted call, 4-6 from path B's warm call, 7 from path C's
-     counted call), then the ok line, last.
+ 10. one JSON line of per-kernel numbers, a row per kernel and shape, each
+     naming its shape (launches: kernels 1, 2 and the bf16 score from the
+     fused step's counted call, the fp32 score's two rows and 4-6 from path
+     B's warm call, 7 from path C's counted call; each row also lists its
+     launches on every path), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -85,13 +93,22 @@ PEAK_BF16_FLOPS = 989e12
 SOURCES = {
     "lane_nn_smalld": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:74"),
     "lane_mutual": ("tpu3dm_torch/csrc/lane_mutual.cu", "tpu3dm/ops/nn_lane.py:135"),
+    "ransac_score_bf16": ("tpu3dm_torch/csrc/ransac_score.cu", "tpu3dm/ops/ransac_score.py:124"),
     "ransac_score": ("tpu3dm_torch/csrc/ransac_score.cu", "tpu3dm/ops/ransac_score.py:124"),
+    "ransac_score_fp32_1lane": ("tpu3dm_torch/csrc/ransac_score.cu",
+                                "tpu3dm/ops/ransac_score.py:124"),
     "nn_tiled_smalld": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:138"),
     "nn_tiled_wide": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:169"),
     "nn_blocksparse": ("tpu3dm_torch/csrc/nn_blocksparse.cu", "tpu3dm/ops/nn_sparse.py:199"),
     "lane_nn_wide": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:100"),
 }
-FUSED_KERNELS = ("lane_nn_smalld", "lane_mutual", "ransac_score")
+# A row that times a kernel at a second shape, and that kernel's name.
+ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score"}
+# Launches of the fused step's counted call: the correspondence search, one
+# score chunk (approx_score: bf16), one 3-D search every ICP_SOLVES_PER_NN
+# iterations.
+FUSED_LAUNCHES = {"lane_mutual": 1, "ransac_score_bf16": 1, "ransac_score": 0,
+                  "lane_nn_smalld": -(-ICP_ITERS // ICP_SOLVES_PER_NN)}
 LARGE_KERNELS = ("nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")
 
 # The large-cloud path: bench.py's large phase (make_benchmark_pair(1M, seed=0,
@@ -320,13 +337,14 @@ def main() -> int:
     torch.cuda.synchronize()
     idx_agree = (idxk == idxp)[sm].float().mean().item()
     d2_err = (d2k - d2p).abs()[sm].max().item()
-    if idx_agree < 0.999 or d2_err > 1e-4:
-        fail(f"lane_nn_smalld disagrees: idx {idx_agree:.6f}, max |d2| err {d2_err:.3g}")
+    if idx_agree < 1.0 or d2_err > 0.0:
+        fail(f"lane_nn_smalld: picks equal on {idx_agree:.6%}, max |d2| error {d2_err:.3g} "
+             f"(exact expected)")
     far = torch.where(tm[..., None], tp, torch.full_like(tp, 1e9))
     b, m, n = q.shape[0], q.shape[1], tp.shape[1]
     nq, nt = lane_counts(sm), lane_counts(tm)
     # Needed work: valid queries x valid targets, 9 fp32 instructions each (3
-    # subtractions, 3 squares, 3 adds: bias first); bytes: valid rows, the
+    # subtractions, 3 squares, 2 adds, the compare); bytes: valid rows, the
     # target mask, and d2 and idx of every query.
     results["lane_nn_smalld"] = dict(
         agree=idx_agree, max_abs_err=d2_err,
@@ -335,6 +353,7 @@ def main() -> int:
         library_ms=cuda_ms(lambda: torch.cdist(q, far).argmin(-1), 2),
         bound=bound_ms(12 * (nq.sum() + nt.sum()).item() + b * n + 8 * b * m,
                        (9.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+        shape=f"{b} lanes x {m} queries x {n} targets, d 3",
     )
     del d2k, idxk, d2p, idxp, far
 
@@ -370,6 +389,7 @@ def main() -> int:
         library_ms=cuda_ms(mutual_library, 2),
         bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
                        (35.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+        shape=f"{b} lanes x {na} x {nb}, d 33",
     )
     del idxk, mutk, idxp, mutp, far
 
@@ -399,6 +419,7 @@ def main() -> int:
         library_ms=cuda_ms(wide_library, 2),
         bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * nb + 8 * b * na,
                        (34.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+        shape=f"{b} lanes x {na} x {nb}, d 33",
     )
     del d2k, idxk, d2p, idxp, tsq
 
@@ -430,6 +451,9 @@ def main() -> int:
     v_lib = cuda_ms(verify_library, 1)
     v_bound = bound_ms(12 * (cv * nq.sum() + nt.sum()).item() + b * n + 8 * b * cv * m,
                        (9.0 * cv * (nq * nt).sum().item(), PEAK_FP32_OPS))
+    results["lane_nn_smalld"].update(
+        ms_verification=v_ms, bound_ms_verification=v_bound[0],
+        shape_verification=f"{b} lanes x {cv * m} queries ({cv} candidates) x {n} targets, d 3")
     log(f"kernel lane_nn_smalld at the verification shape ({LANES} lanes x {cv} candidates x {m} "
         f"queries against {n} targets): picks equal {v_agree:.6f}, max |d2| err {v_err:.3g}; "
         f"kernel {v_ms:.4f} ms, plain {v_plain:.4f} ms, library {v_lib:.4f} ms, bound "
@@ -438,8 +462,8 @@ def main() -> int:
 
     # Kernel 3: the RANSAC score of one 4096-hypothesis chunk, built from the
     # lanes' own correspondences as ransac_pair_step builds it (centred
-    # correspondences, roll sampler, triangle-frame fits, bf16-rounded
-    # features, as approx_score does).
+    # correspondences, roll sampler, triangle-frame fits, H and F rounded to
+    # bf16 tensors, as approx_score passes them: the bf16 route).
     qa, valid = correspondences(fa, fb, sm, tm, tp)
     p = jitter(src["points"] - frame_c[:, None], 1e-3)
     w = valid.float()[..., None]
@@ -453,43 +477,71 @@ def main() -> int:
                               ga[..., 3:], gb[..., 3:], gc[..., 3:])
     H, e = hyp.hypothesis_features_planar(R, t)
     F, c = ransac_score.corres_features(p, qa)
-    H = H.to(torch.bfloat16).float().contiguous()
-    F = F.to(torch.bfloat16).float().contiguous()
+    H = H.to(torch.bfloat16).contiguous()
+    F = F.to(torch.bfloat16).contiguous()
     c, e, v = c.contiguous(), e.contiguous(), valid.contiguous()
     del qa, p, w, ga, gb, gc, R, t, fa, fb
 
     thr = f32_square(cfg.ransac.dist_thresh)
     ck = ransac_score.score_features(H, e, F, c, v, thr)
     cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, v, thr, ransac_score.BF16_MMA_REL)
     torch.cuda.synchronize()
     diff = (ck - cp).abs()
     exact = (diff == 0).float().mean().item()
-    if diff.max().item() > 1 or exact < 0.999:
-        fail(f"ransac_score: counts equal on {exact:.4%} of hypotheses, "
-             f"max difference {diff.max().item()}")
+    outside = int(((ck < sure) | (ck > sure + near)).sum())
+    log(f"kernel ransac_score_bf16: {int((near > 0).sum())} hypotheses with entries within "
+        f"BF16_MMA_REL of the threshold, {outside} kernel counts outside the float64 bracket")
+    if diff.max().item() > 1 or exact < 0.999 or outside:
+        fail(f"ransac_score_bf16: counts equal on {exact:.4%} of hypotheses, max difference "
+             f"{diff.max().item()}, {outside} outside the float64 bracket")
+    # The fp32 route on the same values in fp32 tensors, as this path ran it
+    # before the bf16 route: the "ransac_score" row keeps that meaning.
+    Hf, Ff = H.float(), F.float()
+    cf = ransac_score.score_features(Hf, e, Ff, c, v, thr)
+    torch.cuda.synchronize()
+    f_diff = (cf - cp).abs()
+    f_exact = (f_diff == 0).float().mean().item()
+    if f_diff.max().item() > 1 or f_exact < 0.999:
+        fail(f"ransac_score (fp32 route, bf16 values): max difference {f_diff.max().item()}")
     k, nn_ = H.shape[1], F.shape[1]
-    Ft = F.transpose(-1, -2)
+    Ft = Ff.transpose(-1, -2)
 
     def score_library():  # one fp32 [b, k, n] tensor (34 GB at full size), in place
-        d2 = torch.baddbmm(c[:, None, :], H, Ft).add_(e[:, :, None])
+        d2 = torch.baddbmm(c[:, None, :], Hf, Ft).add_(e[:, :, None])
         return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
 
-    nv = lane_counts(v)
-    # Needed work: every hypothesis x the lane's valid correspondences.  H and
-    # F hold bf16 values, so the product is a bf16 tensor-core product with
-    # fp32 accumulation (16 multiply-adds, 32 flops) and an fp32 epilogue of
-    # two operations (the add of c_n + e_k and the compare); bytes: H, e and
-    # the counts in full, valid rows of F and c, the mask.
-    results["ransac_score"] = dict(
+    nv = lane_counts(v).sum().item()
+    # Needed work: every hypothesis x the lane's valid correspondences, a bf16
+    # tensor-core product with fp32 accumulation (16 multiply-adds, 32 flops)
+    # and an fp32 epilogue of three instructions ((acc + c_n) + e_k, then the
+    # compare); bytes: H (bf16, 32 B a row), e and the counts in full, valid
+    # rows of F (bf16) and c, the mask.  The fp32 route's row does the same
+    # work on H and F read in fp32 (64 B a row).
+    work = ((32.0 * k * nv, PEAK_BF16_FLOPS), (3.0 * k * nv, PEAK_FP32_OPS))
+    library_ms = cuda_ms(score_library, 2)
+    shape = f"{b} lanes x K {k} x N {nn_} ({nv:.0f} valid rows)"
+    results["ransac_score_bf16"] = dict(
         agree=exact, max_abs_err=float(diff.max().item()),
-        ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 5),
+        ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10),
         plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 2),
-        library_ms=cuda_ms(score_library, 2),
-        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv.sum().item() + b * nn_,
-                       (32.0 * k * nv.sum().item(), PEAK_BF16_FLOPS),
-                       (2.0 * k * nv.sum().item(), PEAK_FP32_OPS)),
+        library_ms=library_ms,
+        bound=bound_ms(b * k * (32 + 4 + 4) + 36 * nv + b * nn_, *work),
+        shape=f"{shape}, bf16 H and F",
     )
-    del H, e, F, c, v, Ft, ck, cp, diff
+    results["ransac_score"] = dict(
+        agree=f_exact, max_abs_err=float(f_diff.max().item()),
+        ms=cuda_ms(lambda: ransac_score.score_features(Hf, e, Ff, c, v, thr), 5),
+        plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(Hf, e, Ff, c, v, thr), 2),
+        library_ms=library_ms,
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * nn_, *work),
+        shape=f"{shape}, fp32 H and F holding bf16 values",
+    )
+    r, rf = results["ransac_score_bf16"], results["ransac_score"]
+    log(f"kernel ransac_score_bf16: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); the fp32 "
+        f"route on the same values in fp32 tensors: kernel {rf['ms']:.4f} ms, bound "
+        f"{rf['bound'][0]:.4f} ms ({rf['bound'][1]})")
+    del H, e, F, c, v, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
     torch.cuda.empty_cache()
     for name, r in results.items():
         log(f"kernel {name}: agree {r['agree']:.6f}, max abs err {r['max_abs_err']:.3g}; "
@@ -506,9 +558,8 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.time() - t0
     launches = {name: kern.launches for name, kern in KERNELS.items()}
-    for name in FUSED_KERNELS:
-        if launches[name] <= 0:
-            fail(f"the fused path launched kernel {name} no time")
+    if any(launches[k] != n for k, n in FUSED_LAUNCHES.items()):
+        fail(f"the fused path launched {launches}, expected {FUSED_LAUNCHES}")
 
     mu = np.tile(np.stack([mo[0] for mo in moments]), (LANES // PAIRS, 1))
     M2 = np.tile(np.stack([mo[1] for mo in moments]), (LANES // PAIRS, 1, 1))
@@ -575,21 +626,28 @@ def main() -> int:
     del src, tgt
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
-    # Kernels 1-3: launches of the fused path's counted step; 4-6: of path B;
-    # 7: of path C.
-    launches.update({name: large_launches[name] for name in LARGE_KERNELS})
-    launches["lane_nn_wide"] = rescue_launches["lane_nn_wide"]
+    by_path = {"fused": launches, **rescue_launches, **large_launches}
+    # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
+    # step; the fp32 score and 4-6: of path B; 7: of path C.
+    row_path = {"ransac_score": "B", "lane_nn_wide": "C",
+                **{name: "B" for name in LARGE_KERNELS}}
 
     # --- 11. report -------------------------------------------------------
     kernels = []
     for name, r in results.items():
-        kernels.append({
+        kern = ROW_KERNEL.get(name, name)
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
+            "replaces": SOURCES[name][1], "launches": by_path[row_path.get(kern, "fused")][kern],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
-        })
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            # A kernel whose module a path had not imported yet was launched 0 times.
+            "launches_by_path": {path: counts.get(kern, 0) for path, counts in by_path.items()},
+        }
+        row.update({key: r[key] for key in ("ms_verification", "bound_ms_verification",
+                                            "shape_verification") if key in r})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -631,7 +689,7 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
     with the batched alias rescue over the LANES lanes: launch counts zeroed
     just before each path's counted call and read just after, every lane
     gated.  Path C is also checked against the CPU on lanes 0-3, timed,
-    staged and profiled; D is timed once.  Returns path C's launch counts."""
+    staged and profiled; D is timed once.  Returns {"C": counts, "D": counts}."""
     import torch
 
     from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
@@ -696,7 +754,8 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
         # One correspondence search, one score launch a restart (one chunk
         # each), 8 annealed solves + 1 grading search over all candidates,
         # then the ICP polish's searches.
-        expect = {"lane_mutual": int(mutual), "lane_nn_wide": int(not mutual), "ransac_score": R,
+        expect = {"lane_mutual": int(mutual), "lane_nn_wide": int(not mutual),
+                  "ransac_score_bf16": R, "ransac_score": 0,
                   "lane_nn_smalld": VERIFY_ITERS + 1 + n_icp_searches}
         if any(counts[k] != v for k, v in expect.items()):
             fail(f"path {name} launches {counts}, expected {expect}")
@@ -734,20 +793,19 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
             f"{stages[2]:.1f}, ICP polish {stages[3]:.1f}; lanes 0-3 vs CPU: rot "
             f"{ref_rot:.4f} deg, t {ref_t:.3g}")
         profile_report(lambda: step(mutual), f"path {name}")
-    return out["C"]
+    return out
 
 
-def fp32_score_case(sd, td, rc) -> None:
-    """Kernel 3 at one lane on fp32 inputs, as the two-mode RANSAC runs it:
-    the first hypothesis chunk of path B's first restart (the generator
+def fp32_score_case(sd, td, rc) -> dict:
+    """Kernel 3's fp32 route at one lane, as the two-mode RANSAC runs it: the
+    first hypothesis chunk of path B's first restart (the generator
     register_arrays_large seeds with key 0), built as ransac_two_mode builds
     it.  The kernel's fmaf chain and the plain version's cuBLAS product sum
     in different orders, so a count may differ where an entry lies within
     the fp32 error of the threshold.  Held to: both counts of every
-    hypothesis inside the float64 bracket [sure, sure + near], where near
-    counts entries within gamma_18 * sum|terms| of the threshold (18
-    rounded steps: 16 products, c and e); equal on >= 99.9% of hypotheses;
-    never more than 1 apart."""
+    hypothesis inside the float64 bracket of FP32_CHAIN_REL (18 rounded
+    steps: 16 products, c and e); equal on >= 99.9% of hypotheses; never
+    more than 1 apart.  Returns the kernel's numbers."""
     import torch
 
     from tpu3dm_torch.ops import ransac_score
@@ -774,14 +832,9 @@ def fp32_score_case(sd, td, rc) -> None:
 
     ck = ransac_score.score_features(H, e, F, c, v, thr)
     cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
-    H64, F64, c64, e64 = H[0].double(), F[0].double(), c[0].double(), e[0].double()
-    d2 = H64 @ F64.T + c64[None] + e64[:, None]
-    tol = 18 * 2.0 ** -24 * 1.01 * (H64.abs() @ F64.abs().T + c64.abs()[None] + e64.abs()[:, None])
-    sure = ((d2 < thr - tol) & v).sum(1)
-    near = (((d2 - thr).abs() <= tol) & v).sum(1)
-    del d2, tol
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, v, thr, ransac_score.FP32_CHAIN_REL)
     torch.cuda.synchronize()
-    outside = sum(int(((x[0] < sure) | (x[0] > sure + near)).sum()) for x in (ck, cp))
+    outside = sum(int(((x < sure) | (x > sure + near)).sum()) for x in (ck, cp))
     diff = (ck - cp).abs()
     exact = (diff == 0).float().mean().item()
     k, nv = H.shape[1], float(v.sum())
@@ -798,22 +851,29 @@ def fp32_score_case(sd, td, rc) -> None:
         d2 = torch.baddbmm(c[:, None, :], H, Ft).add_(e[:, :, None])
         return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
 
-    ms = cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10)
-    plain_ms = cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 3)
-    library_ms = cuda_ms(score_library, 3)
-    # 18 fp32 instructions per hypothesis x valid correspondence (16 FMAs,
-    # the adds of c and e); bytes: H, e and the counts in full, valid rows of
-    # F and c, the mask.
-    bound = bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (18.0 * k * nv, PEAK_FP32_OPS))
-    log(f"kernel ransac_score fp32 (B first RANSAC chunk): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    # 19 fp32 instructions per hypothesis x valid correspondence (16 FMAs,
+    # the adds of c and e, the compare); bytes: H, e and the counts in full,
+    # valid rows of F and c, the mask.
+    r = dict(
+        agree=exact, max_abs_err=float(diff.max()),
+        ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10),
+        plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 3),
+        library_ms=cuda_ms(score_library, 3),
+        bound=bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (19.0 * k * nv, PEAK_FP32_OPS)),
+        shape=f"1 lane x K {k} x N {F.shape[1]} ({nv:.0f} valid rows), fp32 H and F",
+    )
+    log(f"kernel ransac_score fp32 (B first RANSAC chunk): kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]})")
+    return r
 
 
 def large_phases(dev, results: dict) -> dict:
     """Paths A and B of ``register_arrays_large`` at LARGE_POINTS points, the
-    kernels 4-6 against their plain versions at those paths' shapes, and
-    path A on the card against the CPU.  Adds the kernels' numbers to
-    ``results``; returns path B's launch counts."""
+    kernels 3 (fp32 route) to 6 against their plain versions at those paths'
+    shapes, and path A on the card against the CPU.  Adds the kernels'
+    numbers to ``results``; returns {"A": counts, "B": counts} of the warm
+    calls."""
     import dataclasses
 
     import torch
@@ -897,6 +957,8 @@ def large_phases(dev, results: dict) -> dict:
             for k in needed:
                 if counts[k] <= 0:
                     fail(f"path {name} launched kernel {k} no time")
+            if counts["ransac_score_bf16"]:
+                fail(f"path {name} launched the bf16 score: its RANSAC scores fp32 features")
             rot, rmse = gate(fine.transformation)
             if rot >= LARGE_GATE_ROT_DEG or rmse >= LARGE_GATE_RMSE:
                 fail(f"path {name} quality gate: rot {rot:.4f} deg, rmse {rmse:.3g}")
@@ -919,7 +981,8 @@ def large_phases(dev, results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # --- kernels 3-6 against their plain versions, at the paths' shapes ------
-    fp32_score_case(data["B"]["sd"], data["B"]["td"], PipelineConfig.with_voxel_size(0.1).ransac)
+    results["ransac_score_fp32_1lane"] = fp32_score_case(data["B"]["sd"], data["B"]["td"],
+                                              PipelineConfig.with_voxel_size(0.1).ransac)
 
     def valid_count(mask):
         return float(mask.sum().item())
@@ -959,6 +1022,7 @@ def large_phases(dev, results: dict) -> dict:
             # valid rows of both sets, the bias or tsq of every target, d2 and
             # idx of every query
             bound=bound_ms(4 * d * (nq + nt) + 4 * t.shape[0] + 8 * q.shape[0], work),
+            shape=f"{q.shape[0]} x {t.shape[0]}, d {d}",
         )
         log(f"kernel {label}: {q.shape[0]} x {t.shape[0]} x {d}: picks equal {agree:.6f}, "
             f"max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -1005,6 +1069,7 @@ def large_phases(dev, results: dict) -> dict:
         library_ms=None,  # no single PyTorch call searches a per-block candidate table
         bound=bound_ms(12 * (vq.sum() + vt.sum()).item() + 4 * table.numel() + 8 * q.shape[0],
                        (7.0 * entries, PEAK_FP32_OPS)),
+        shape=f"{q.shape[0]} x {tgt.points.shape[0]}, {table.shape[0]} blocks x w {table.shape[1]}",
     )
     log(f"kernel nn_blocksparse (A first full-res ICP search): {q.shape[0]} x {tgt.points.shape[0]}, "
         f"{table.shape[0]} query blocks x w {table.shape[1]}, {entries:.4g} valid entries: "
@@ -1038,7 +1103,7 @@ def large_phases(dev, results: dict) -> dict:
     log(f"path A at {AGREE_POINTS} points, same sample bits: card {gpu_s:.2f} s, CPU {cpu_s:.2f} s; "
         f"card vs CPU rot {d_rot:.5f} deg, t {d_t:.3g}; iterations {int(fg.iterations)} / "
         f"{int(fc.iterations)}; card vs T_true rot {rot_g:.4f} deg, rmse {rmse_g:.3g}")
-    return path_launches["B"]
+    return path_launches
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
 from tpu3dm_torch.ops import nn as tnn
 from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score
 
-ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "ransac_score",
+ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "ransac_score", "ransac_score_bf16",
                "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide"}
 
 
@@ -35,9 +35,10 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     f = torch.rand(1, 8, 33)
     nn_lane.nn_search_lane(f, f)
     nn_lane.nn_mutual_mask_lane(f, f)
-    ransac_score.score_features(torch.zeros(1, 4, 16), torch.zeros(1, 4),
-                                torch.zeros(1, 8, 16), torch.zeros(1, 8),
-                                torch.ones(1, 8, dtype=torch.bool), 1.0)
+    for dt in (torch.float32, torch.bfloat16):
+        ransac_score.score_features(torch.zeros(1, 4, 16, dtype=dt), torch.zeros(1, 4),
+                                    torch.zeros(1, 8, 16, dtype=dt), torch.zeros(1, 8),
+                                    torch.ones(1, 8, dtype=torch.bool), 1.0)
     tnn.nn_search_tiled(torch.rand(8, 3), torch.rand(16, 3))
     tnn.nn_search_tiled(torch.rand(8, 33), torch.rand(16, 33))
     nn_sparse.nn_search_table(torch.rand(8, 3), torch.rand(16, 3),
@@ -131,6 +132,73 @@ def test_lane_nn_kernel_matches_plain(cuda_device):
     assert torch.equal(d2k, d2p)
 
 
+def _lane_nn_case(case, rng):
+    """(q [B, M, 3], t [B, N, 3], target mask [B, N] or None) for a case of the
+    compacted search: lanes with a single valid target, valid targets only at
+    the end of a 2048-row staging tile (or of the lane), exact ties between
+    targets that land at different compacted positions, query counts that
+    are no multiple of the 1024 rows a block takes, no mask at all."""
+    B, M, N = 4, 700, 2500
+    if case == "ragged_m":
+        M = 2 * 1024 + 37
+    q = rng.normal(size=(B, M, 3))
+    t = rng.normal(size=(B, N, 3))
+    tm = rng.random((B, N)) > 0.3
+    if case == "one_valid":
+        tm[1] = False
+        tm[1, 1777] = True
+        tm[2] = False
+        tm[2, 0] = True
+    elif case == "tile_end":
+        tm[:] = False
+        tm[0, 2040:2048] = True  # the first tile's last rows only
+        tm[1, 2490:] = True      # the lane's last rows only, in the second tile
+        tm[2, 2047:2049] = True  # one row either side of the tile boundary
+        tm[3, 2047] = True
+    elif case == "ties":
+        # Points of a coarse integer grid: many targets at exactly the same
+        # distance from a query, valid and masked ones interleaved across
+        # both tiles, and duplicated target points.
+        q = rng.integers(-2, 3, size=(B, M, 3)).astype(np.float64)
+        t = rng.integers(-2, 3, size=(B, N, 3)).astype(np.float64)
+        t[:, 2100] = t[:, 7]
+        t[:, 1500] = t[:, 7]
+        tm[:, 7] = False
+    elif case == "no_mask":
+        tm = None
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    return f32(q), f32(t), None if tm is None else torch.tensor(tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_valid", "tile_end", "ties", "ragged_m", "no_mask",
+                                  "sliced_mask", "expanded_mask"])
+def test_lane_nn_kernel_compaction_cases_match_plain(cuda_device, case):
+    """The kernel searches only the compacted valid targets: bit for bit the
+    plain version's biased search on every case, including a target mask
+    that is a strided view at an odd byte offset, or one lane's mask
+    expanded over all lanes."""
+    q, t, tm = (None if x is None else x.to(cuda_device)
+                for x in _lane_nn_case(case, np.random.default_rng(10)))
+    if case == "sliced_mask":
+        wide = torch.zeros((tm.shape[0] + 1, tm.shape[1] + 3), dtype=torch.bool,
+                           device=cuda_device)
+        wide[1:, 3:] = tm
+        tm = wide[1:, 3:]
+        assert not tm.is_contiguous() and tm.data_ptr() % 16
+    elif case == "expanded_mask":
+        tm = tm[:1].expand_as(tm)
+    before = KERNELS["lane_nn_smalld"].launches
+    d2k, idxk = nn_lane.nn_search_lane(q, t, None, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(q, t, None, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_nn_smalld"].launches == before + 1
+    assert torch.equal(idxk, idxp)
+    assert torch.equal(d2k, d2p)
+    if case == "one_valid":
+        assert (idxk[1] == 1777).all() and (idxk[2] == 0).all()
+
+
 @pytest.mark.gpu
 def test_lane_mutual_kernel_matches_plain(cuda_device):
     """The kernel's dot product is an fmaf chain, the plain one a matmul:
@@ -167,6 +235,47 @@ def test_ransac_score_kernel_matches_plain(cuda_device):
     diff = (ck - cp).abs()
     assert diff.max() <= 1 and (diff == 0).float().mean() >= 0.999
     assert ck.max() > 0
+
+
+@pytest.mark.gpu
+def test_ransac_score_bf16_kernel_within_bracket(cuda_device):
+    """The bf16 tensor-core route against its plain version: lanes with 0, 1,
+    7 and all N valid rows and one with ~half, K no multiple of the 512
+    hypotheses a block takes, N over the 1024 rows staged a pass, a NaN
+    hypothesis row.  Counts equal on >= 99.9% of hypotheses and never more
+    than 1 apart, every kernel count inside the float64 bracket of
+    BF16_MMA_REL, and the NaN row and the empty lane count 0."""
+    rng = np.random.default_rng(12)
+    B, K, N = 5, 700, 1300
+    R = exp_so3(torch.tensor(rng.normal(size=(B, K, 3)) * 0.3, dtype=torch.float32))
+    t = torch.tensor(rng.normal(size=(B, K, 3)) * 0.2, dtype=torch.float32)
+    p = torch.tensor(rng.normal(size=(B, N, 3)), dtype=torch.float32)
+    q = p + torch.tensor(rng.normal(size=(B, N, 3)) * 0.3, dtype=torch.float32)
+    F, c = ransac_score.corres_features(p.to(cuda_device), q.to(cuda_device))
+    H, e = ransac_score.hypothesis_features(R.to(cuda_device), t.to(cuda_device))
+    H[0, 5] = float("nan")
+    m = torch.tensor(rng.random((B, N)) > 0.5, device=cuda_device)
+    m[1] = False
+    m[2] = False
+    m[2, 1111] = True
+    m[3] = False
+    m[3, [0, 8, 300, 1023, 1024, 1100, 1299]] = True
+    m[4] = True
+    H, F = H.to(torch.bfloat16).contiguous(), F.to(torch.bfloat16).contiguous()
+    e, c = e.contiguous(), c.contiguous()
+    thr = float(np.float32(0.6) ** 2)
+    before = {n: KERNELS[n].launches for n in ("ransac_score", "ransac_score_bf16")}
+    ck = ransac_score.score_features(H, e, F, c, m, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, m, thr)
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, m, thr, ransac_score.BF16_MMA_REL)
+    torch.cuda.synchronize()
+    assert KERNELS["ransac_score_bf16"].launches == before["ransac_score_bf16"] + 1
+    assert KERNELS["ransac_score"].launches == before["ransac_score"]
+    diff = (ck - cp).abs()
+    assert diff.max() <= 1 and (diff == 0).float().mean() >= 0.999
+    assert ((ck >= sure) & (ck <= sure + near)).all()
+    assert ck[0, 5] == 0 and (ck[1] == 0).all()
+    assert ck[2].max() == 1 and ck[3].max() > 1 and ck[4].max() > 0
 
 
 @pytest.mark.gpu
@@ -247,7 +356,8 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     Tc, fc, _ = fused_register_step(*args, bits, device="cpu", **kw)
     torch.cuda.synchronize()
     assert all(KERNELS[n].launches > before[n]
-               for n in ("lane_nn_smalld", "lane_mutual", "ransac_score"))
+               for n in ("lane_nn_smalld", "lane_mutual", "ransac_score_bf16"))
+    assert KERNELS["ransac_score"].launches == before["ransac_score"]  # approx_score: bf16
     _assert_close_poses(Tg, Tc, T_true)
 
 
@@ -296,7 +406,8 @@ def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual):
     unused = "lane_nn_wide" if mutual else "lane_mutual"
     assert KERNELS[used].launches == before[used] + 1
     assert KERNELS[unused].launches == before[unused]
-    assert KERNELS["ransac_score"].launches == before["ransac_score"] + R
+    assert KERNELS["ransac_score_bf16"].launches == before["ransac_score_bf16"] + R
+    assert KERNELS["ransac_score"].launches == before["ransac_score"]
     # 8 annealed solves + 1 grading search over all candidates, 2 ICP searches
     assert KERNELS["lane_nn_smalld"].launches == before["lane_nn_smalld"] + 9 + 2
     _assert_close_poses(Tg, Tc, T_true)
@@ -402,6 +513,7 @@ def test_register_arrays_large_cuda_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     for name in ("ransac_score", "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse"):
         assert KERNELS[name].launches > before[name], name
+    assert KERNELS["ransac_score_bf16"].launches == before["ransac_score_bf16"]  # fp32 score
     fc, _ = register_arrays_large(sp, tp, cfg, restarts=2, sample_bits=bits, device="cpu")
     Tg, Tc = fg.transformation.cpu().double(), fc.transformation.double()
     fro = torch.linalg.matrix_norm(Tg[:3, :3] - Tc[:3, :3])

@@ -237,6 +237,60 @@ def test_score_matches_jax_pallas_and_xla(k, n):
     assert 0 < counts.min() and counts.max() < mask.sum()
 
 
+def _bf16_scoring_inputs(k=300, n=257, seed=11):
+    rng = np.random.default_rng(seed)
+    R, t, p, q, mask = _random_hypotheses(rng, k, n)
+    F, c = ransac_score.corres_features(_t(p)[None], _t(q)[None])
+    H, e = ransac_score.hypothesis_features(_t(R)[None], _t(t)[None])
+    return H.to(torch.bfloat16), e, F.to(torch.bfloat16), c, _t(mask)[None]
+
+
+def test_score_features_bf16_equals_fp32_on_the_same_values():
+    """The bf16 route's plain version upcasts: bit-equal counts to the fp32
+    call on the same (bf16-representable) values, inside the bf16 kernel's
+    float64 bracket."""
+    H, e, F, c, m = _bf16_scoring_inputs()
+    thr = float(np.float32(0.6) ** 2)
+    cb = ransac_score.score_features(H, e, F, c, m, thr)
+    cf = ransac_score.score_features(H.float(), e, F.float(), c, m, thr)
+    assert cb.dtype == torch.int32
+    assert torch.equal(cb, cf)
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, m, thr, ransac_score.BF16_MMA_REL)
+    assert ((cb >= sure) & (cb <= sure + near)).all()
+    assert 0 < cb.max() < m.sum()
+
+
+@pytest.mark.parametrize("h_dtype,f_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.float16, torch.float16)])
+def test_score_features_rejects_mixed_or_other_dtypes(h_dtype, f_dtype):
+    with pytest.raises(TypeError):
+        ransac_score.score_features(torch.zeros(1, 4, 16, dtype=h_dtype), torch.zeros(1, 4),
+                                    torch.zeros(1, 8, 16, dtype=f_dtype), torch.zeros(1, 8),
+                                    torch.ones(1, 8, dtype=torch.bool), 1.0)
+
+
+@pytest.mark.parametrize("rel", [ransac_score.FP32_CHAIN_REL, ransac_score.BF16_MMA_REL],
+                         ids=["fp32_chain", "bf16_mma"])
+def test_score_count_bracket_holds_jax_counts(rel):
+    """The float64 bracket holds the JAX XLA score's counts on the same fp32
+    inputs (a NaN hypothesis row counts nothing, and is in neither set);
+    near entries are rare."""
+    rng = np.random.default_rng(13)
+    R, t, p, q, mask = _random_hypotheses(rng, 256, 384)
+    R = R.copy()
+    R[3] = np.nan
+    thr = float(np.float32(0.6) ** 2)
+    c_x = np.asarray(jscore.score_hypotheses_xla(*(jnp.asarray(x) for x in (R, t, p, q, mask)),
+                                                 thr))
+    F, c = ransac_score.corres_features(_t(p)[None], _t(q)[None])
+    H, e = ransac_score.hypothesis_features(_t(R)[None], _t(t)[None])
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, _t(mask)[None], thr, rel)
+    assert ((c_x >= sure[0].numpy()) & (c_x <= (sure + near)[0].numpy())).all()
+    assert sure[0, 3] == 0 and near[0, 3] == 0 and c_x[3] == 0
+    assert near.sum() <= 2
+
+
 def _arch_correspondences(n=512, seed=0):
     """Correspondences of a moved arch with 40% outliers, centred."""
     from tpu3dm_torch.io.synthetic import dental_arch_cloud

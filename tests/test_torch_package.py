@@ -1,6 +1,7 @@
 """Package rules of tpu3dm_torch: no JAX, lazy kernels, no quiet CPU fallback."""
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -12,6 +13,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tpu3dm_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+SMOKE = _load_chip_smoke()  # its top level imports no torch and runs nothing
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -42,6 +53,7 @@ def test_import_needs_no_triton_nvcc_or_gpu():
         "    importlib.import_module(m.name)\n"
         "from tpu3dm_torch import csrc\n"
         "assert set(csrc.KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score',\n"
+        "                             'ransac_score_bf16',\n"
         "                             'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse',\n"
         "                             'lane_nn_wide'}, csrc.KERNELS\n"
         "assert all(k._fn is None for k in csrc.KERNELS.values())\n"
@@ -109,3 +121,26 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_chip_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("row", sorted(SMOKE.SOURCES))
+def test_chip_smoke_row_names_its_kernel_source_and_tpu_kernel(row):
+    """A row of the smoke's kernels line names a kernel of the port (through
+    ROW_KERNEL where the row times that kernel at a second shape), that
+    kernel's CUDA source, and the Pallas kernel it replaces by file and line."""
+    from tpu3dm_torch.csrc import KERNELS
+    from tpu3dm_torch.ops import nn, nn_lane, nn_sparse, ransac_score  # noqa: F401
+
+    kernel = KERNELS[SMOKE.ROW_KERNEL.get(row, row)]
+    source, replaces = SMOKE.SOURCES[row]
+    assert source == f"tpu3dm_torch/csrc/{kernel.source}"
+    path, line = replaces.split(":")
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith("def _") and "kernel" in text, text
+
+
+def test_chip_smoke_has_a_row_for_every_kernel():
+    from tpu3dm_torch.csrc import KERNELS
+    from tpu3dm_torch.ops import nn, nn_lane, nn_sparse, ransac_score  # noqa: F401
+
+    assert {SMOKE.ROW_KERNEL.get(row, row) for row in SMOKE.SOURCES} == set(KERNELS)

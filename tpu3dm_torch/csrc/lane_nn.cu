@@ -7,24 +7,38 @@
 // lane, so the kernel sees [B, C * M, 3] queries against [B, N, 3] targets:
 // no copy of the targets and no group argument.
 //
-// For pair lane b and query row i, over every target j of the same lane:
+// For pair lane b and query row i, the plain version
+// (tpu3dm_torch/ops/nn.py:nn_search_dense) takes over every target j
 //   d2(i, j) = bias[b, j] + sum_d (q[b, i, d] - t[b, j, d])^2
-// keeping the running minimum and its first index.  bias is 0 for a valid
-// target and BIG (1e30) for a masked one, so d2 is the true squared distance.
+// the minimum and its first index; bias is 0 for a valid target and BIG
+// (1e30) for a masked one.  0 + x == x for every x >= +0, so a valid
+// target's d2 has the bits of sq_dist3 (sqdist3.cuh, no bias), and a masked
+// target's d2 is >= BIG or NaN.  While the best valid d2 is below BIG no
+// masked target can win or tie, so the kernel searches the valid targets
+// only, in ascending index order with a strict `<`: the same minimum and the
+// same first index.  A query whose best valid d2 is not below BIG (a lane
+// with no valid target; coordinates near 1e15) runs the biased loop over
+// every target instead, so the kernel equals the plain version bit for bit
+// in every case.
 //
-// What bounds it on the H100: operations.  At B=2048, M=N=1024 a search is
-// 2.1 G entries of 9 fp32 operations each, against ~50 MB of inputs and
-// outputs.  The TPU kernel holds one lane in VMEM and sweeps 256-wide target
-// sub-blocks; here blocks run in no order, so a block takes 256 query rows of
-// one lane, each thread keeps its query point and its running (min, argmin) in
-// registers, and the lane's targets stream through shared memory as
-// (x, y, z, bias) rows.  Every thread of a warp reads the same target, which shared
-// memory serves as one broadcast load per entry; the [M, N] distances never
-// leave registers.
-//
-// Rounding: biased_sq_dist3 (sqdist3.cuh, shared with nn_tiled.cu) rounds
-// each difference, square and sum on its own in the plain version's order, so
-// the two agree bit for bit.
+// What bounds it on the H100: the fp32 instruction rate.  A valid entry needs 3
+// subtractions, 3 squares, 2 adds and the compare, against ~50 MB of
+// inputs and outputs at B = 2048, M = N = 1024.  The earlier design (one query a
+// thread, every target row staged as four scalars x, y, z, bias) reached
+// ~30% of that bound: each entry also paid four shared-memory broadcast
+// loads, which run at a quarter of the fp32 rate (the time of 16 fp32
+// instructions), and masked rows, ~a quarter of a lane's capacity,
+// cost as much as valid ones.  Here a block takes 1024 query rows of one
+// lane and each thread keeps R of them (strided by the block size, so the
+// query loads stay coalesced) with their running (min, argmin) in
+// registers.  While staging a target tile the block compacts the lane's
+// valid targets in ascending order (warp ballot + popc prefix, compact.cuh)
+// into four shared arrays: x, y, z and the original index.  Each target's
+// three broadcast loads then serve R entries (the index matters only when
+// a target wins), and an entry costs its 8 arithmetic instructions, the
+// compare and two selects.  R = 8 (128 threads, 76 registers, no spills)
+// with scalar arrays ran fastest at both shapes on the H100, ahead of R = 4
+// and of float4 rows (x, y, z, index as int bits) at either R (PERF.md).
 //
 // t3t_lane_nn_wide replaces tpu3dm/ops/nn_lane.py:_lane_nn_mxu_kernel (d >= 8:
 // the 33-D FPFH correspondences of fused_register_step with
@@ -47,57 +61,109 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "compact.cuh"
 #include "nn_wide.cuh"
 #include "sqdist3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 2048;  // targets staged per pass: 32 KB of (x, y, z, bias)
+constexpr float kBig = 1e30f;  // the plain version's bias of a masked target (ops/nn.py:BIG)
+constexpr int kQueriesPerBlock = 1024;
+constexpr int kQueriesPerThread = 8;  // R
+constexpr int kTile = 2048;           // targets staged per pass: 32 KB of (x, y, z, index)
+
+struct Best {
+  float d2;
+  int j;
+};
+
+// The biased d2 over every target of the lane, the plain version's, from global
+// memory, first index on ties.  Mask null: every target valid.
+__device__ __noinline__ Best biased_search(float qx, float qy, float qz,
+                                           const float* __restrict__ lt,
+                                           const unsigned char* __restrict__ lm, int N) {
+  Best b{CUDART_INF_F, 0};
+  for (int j = 0; j < N; ++j) {
+    const float bias = (lm == nullptr || lm[j]) ? 0.f : kBig;
+    const float acc = biased_sq_dist3(qx, qy, qz, lt[3 * j], lt[3 * j + 1], lt[3 * j + 2], bias);
+    if (acc < b.d2) {  // strict: ties keep the smaller index
+      b.d2 = acc;
+      b.j = j;
+    }
+  }
+  return b;
+}
+
+constexpr int kThreads = kQueriesPerBlock / kQueriesPerThread;
 
 __global__ void __launch_bounds__(kThreads)
 lane_nn_smalld_kernel(const float* __restrict__ q, const float* __restrict__ t,
-                      const float* __restrict__ bias, float* __restrict__ d2_out,
+                      const unsigned char* __restrict__ mask, float* __restrict__ d2_out,
                       int* __restrict__ idx_out, int M, int N) {
-  __shared__ float tile[4 * kTile];
+  constexpr int R = kQueriesPerThread;
+  __shared__ float sx[kTile], sy[kTile], sz[kTile];  // compacted valid targets
+  __shared__ int sj[kTile];                          // and their original indices
+  __shared__ int warp_counts[kThreads / 32];
   const int lane = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
   const float* lq = q + static_cast<size_t>(lane) * M * 3;
   const float* lt = t + static_cast<size_t>(lane) * N * 3;
-  const float* lb = bias + static_cast<size_t>(lane) * N;
+  const unsigned char* lm = mask == nullptr ? nullptr : mask + static_cast<size_t>(lane) * N;
+  const int first = blockIdx.x * kQueriesPerBlock + threadIdx.x;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (i < M) {
-    qx = lq[3 * i];
-    qy = lq[3 * i + 1];
-    qz = lq[3 * i + 2];
+  float qx[R], qy[R], qz[R], best[R];
+  int best_j[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = min(first + r * kThreads, M - 1);  // rows past M compute, unwritten
+    qx[r] = lq[3 * i];
+    qy[r] = lq[3 * i + 1];
+    qz[r] = lq[3 * i + 2];
+    best[r] = CUDART_INF_F;
+    best_j[r] = 0;
   }
-  float best = CUDART_INF_F;
-  int best_j = 0;
   for (int base = 0; base < N; base += kTile) {
     const int n = min(kTile, N - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const int g = base + j;
-      tile[4 * j] = lt[3 * g];
-      tile[4 * j + 1] = lt[3 * g + 1];
-      tile[4 * j + 2] = lt[3 * g + 2];
-      tile[4 * j + 3] = lb[g];
+    int nv = 0;  // valid targets of this tile, compacted in index order
+    for (int r0 = 0; r0 < n; r0 += kThreads) {
+      const int j = r0 + threadIdx.x;
+      const bool keep = j < n && (lm == nullptr || lm[base + j]);
+      int kept;
+      const int slot = nv + compact_slot(keep, warp_counts, &kept);  // syncs: the last tile is read
+      if (keep) {
+        const int g = base + j;
+        sx[slot] = lt[3 * g];
+        sy[slot] = lt[3 * g + 1];
+        sz[slot] = lt[3 * g + 2];
+        sj[slot] = g;
+      }
+      nv += kept;
     }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float acc = biased_sq_dist3(qx, qy, qz, tile[4 * j], tile[4 * j + 1],
-                                        tile[4 * j + 2], tile[4 * j + 3]);
-      if (acc < best) {  // strict: ties keep the smaller index
-        best = acc;
-        best_j = base + j;
+    for (int s = 0; s < nv; ++s) {
+      const float tx = sx[s], ty = sy[s], tz = sz[s];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float acc = sq_dist3(qx[r], qy[r], qz[r], tx, ty, tz);
+        if (acc < best[r]) {  // strict: ties keep the smaller index
+          best[r] = acc;
+          best_j[r] = sj[s];
+        }
       }
     }
   }
-  if (i < M) {
-    const size_t o = static_cast<size_t>(lane) * M + i;
-    d2_out[o] = fmaxf(best, 0.f);
-    idx_out[o] = best_j;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = first + r * kThreads;
+    if (i < M) {
+      if (!(best[r] < kBig)) {
+        const Best b = biased_search(qx[r], qy[r], qz[r], lt, lm, N);
+        best[r] = b.d2;
+        best_j[r] = b.j;
+      }
+      const size_t o = static_cast<size_t>(lane) * M + i;
+      d2_out[o] = fmaxf(best[r], 0.f);
+      idx_out[o] = best_j[r];
+    }
   }
 }
 
@@ -112,15 +178,15 @@ lane_nn_wide_kernel(const float* __restrict__ q, const float* __restrict__ t,
 
 }  // namespace
 
-// q [B, M, 3], t [B, N, 3], bias [B, N] float32, contiguous; writes
-// d2 [B, M] float32 and idx [B, M] int32.  Launches on ``stream`` and
-// returns cudaGetLastError().
-extern "C" int t3t_lane_nn_smalld(const float* q, const float* t, const float* bias,
+// q [B, M, 3], t [B, N, 3] float32 and mask [B, N] bool (one byte each; null:
+// every target valid), contiguous; writes d2 [B, M] float32 and idx [B, M]
+// int32.  Launches on ``stream`` and returns cudaGetLastError().
+extern "C" int t3t_lane_nn_smalld(const float* q, const float* t, const unsigned char* mask,
                                   float* d2, int* idx, int B, int M, int N,
                                   cudaStream_t stream) {
   if (B <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  lane_nn_smalld_kernel<<<grid, kThreads, 0, stream>>>(q, t, bias, d2, idx, M, N);
+  const dim3 grid((M + kQueriesPerBlock - 1) / kQueriesPerBlock, B);
+  lane_nn_smalld_kernel<<<grid, kThreads, 0, stream>>>(q, t, mask, d2, idx, M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

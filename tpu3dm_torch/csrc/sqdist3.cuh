@@ -7,9 +7,11 @@
 // the order of the plain version (tpu3dm_torch/ops/nn.py:nn_search_dense), so
 // kernels and plain version agree bit for bit.
 //
-// Both kernels stage their targets in shared memory as four scalars a row
-// (x, y, z, bias) and pass them here one by one: on the H100 that ran faster
-// than float4 rows, whose 128-bit broadcast loads also made lane_nn.cu spill.
+// nn_tiled.cu stages its targets in shared memory as four scalars a row
+// (x, y, z, bias) and passes them here one by one: on the H100 that ran
+// faster than float4 rows, whose 128-bit broadcast loads also made the
+// one-query-a-thread lane_nn.cu spill.  lane_nn.cu now stages only the
+// valid targets and calls sq_dist3.
 
 #pragma once
 
@@ -24,4 +26,15 @@ __device__ __forceinline__ float biased_sq_dist3(float qx, float qy, float qz, f
   acc = __fadd_rn(acc, __fmul_rn(d, d));
   d = __fsub_rn(qz, tz);
   return __fadd_rn(acc, __fmul_rn(d, d));
+}
+
+// (dx * dx + dy * dy) + dz * dz, each step rounded on its own: the bits of
+// biased_sq_dist3 with bias 0, since 0 + x == x for every x >= +0 (a square
+// is >= +0 or NaN, and 0 + NaN is NaN).
+__device__ __forceinline__ float sq_dist3(float qx, float qy, float qz, float tx, float ty,
+                                          float tz) {
+  const float dx = __fsub_rn(qx, tx);
+  const float dy = __fsub_rn(qy, ty);
+  const float dz = __fsub_rn(qz, tz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }

@@ -95,13 +95,18 @@ def nn_search_lane(
         if d != 3:
             raise NotImplementedError(f"{where}: below d = {SMALL_D_MAX} the kernel takes d = 3, "
                                       f"got {d}")
-        if target_mask is None:
-            bias = torch.zeros((b, n), dtype=torch.float32, device=query.device)
-        else:
-            bias = torch.where(target_mask, 0.0, BIG).to(torch.float32)
-        dev = check_cuda_tensors(where, b, query=query, target=target, bias=bias, d2=out, idx=idx)
+        dev = check_cuda_tensors(where, b, query=query, target=target, d2=out, idx=idx)
+        if target_mask is not None:
+            check_dtype(where, torch.bool, target_mask=target_mask)
+            if target_mask.shape != (b, n) or target_mask.device != dev:
+                raise ValueError(f"{where}: target_mask {tuple(target_mask.shape)} on "
+                                 f"{target_mask.device} does not match target "
+                                 f"{tuple(target.shape)} on {dev}")
+            # The kernel reads the mask a byte at a time: any offset will do.
+            target_mask = target_mask.contiguous()
         LANE_NN.launch(
-            dev, query.data_ptr(), target.data_ptr(), bias.data_ptr(),
+            dev, query.data_ptr(), target.data_ptr(),
+            None if target_mask is None else target_mask.data_ptr(),
             out.data_ptr(), idx.data_ptr(), b, m, n,
         )
         return out, idx

@@ -194,9 +194,9 @@ def fit_score_gathers(
     [B, K, 6]); F [B, M, 16], c [B, M], valid [B, M].  ``use_checkers``
     applies the edge-length and distance checkers (Open3D's).
 
-    ``approx_score`` rounds H and F to bf16 before the fp32 score: the
-    products of bf16 values are exact in fp32, so this gives the products of
-    the JAX package's bf16-in, fp32-accumulate dot.
+    ``approx_score`` rounds H and F to bf16 and scores them as bf16 (on CUDA
+    the tensor-core kernel): the products of bf16 values are exact in fp32,
+    so this is the JAX package's bf16-in, fp32-accumulate dot.
 
     Returns (R, t, counts [B, K] int32); checker failures and non-finite
     fits score -1.
@@ -208,8 +208,8 @@ def fit_score_gathers(
 
     H, e = hypothesis_features_planar(R, t)
     if approx_score:
-        H = H.to(torch.bfloat16).to(torch.float32)
-        F = F.to(torch.bfloat16).to(torch.float32)
+        H = H.to(torch.bfloat16)
+        F = F.to(torch.bfloat16)
     counts = score_features(H, e, F, c, valid, thresh_sq)
 
     # Degenerate / non-finite fits must never be elected.
