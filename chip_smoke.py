@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no ok line):
      lanes, M = N = 1024, K = 4096), every lane jittered and thinned on its
      own so that no two lanes hold the same data, with kernel, plain and
      library-yardstick times and each kernel's bound: kernels 1-2, kernel 7
-     (the 33-D forward NN of path C), kernel 1 at the rescue's verification
+     (the 33-D forward NN of path C; 2 and 7 also timed as the launch alone,
+     without the wrapper's norms), kernel 1 at the rescue's verification
      shape (VERIFY_CANDIDATES moved sources a lane), both bit-equal to the
      plain version, and the score's bf16 tensor-core route on bf16 H and F
      (counts inside the float64 bracket of its rounding, >= 99.9% equal,
@@ -181,7 +182,8 @@ def apart(Ta, Tb):
 
 def profile_report(fn, label: str) -> None:
     """One profiled call of ``fn`` (torch.profiler): device busy and idle share
-    of its device span, and the device ops that take the time, by name."""
+    of its device span, and the device ops that take the time, by name: the
+    top 12 and every kernel of the port's own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -204,10 +206,13 @@ def profile_report(fn, label: str) -> None:
             cur_e = max(cur_e, s1)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # The top 12, then the port's own kernels below them (csrc's __global__
+    # functions all live in anonymous namespaces).
+    shown = ranked[:12] + [kv for kv in ranked[12:] if kv[0].startswith("(anonymous namespace)::")]
     log(f"profile {label}: {len(spans)} device ops over a {span / 1e3:.2f} ms device span, "
         f"busy {busy / 1e3:.2f} ms ({busy / span:.1%}), idle {1 - busy / span:.1%}")
-    for name, us in top:
+    for name, us in shown:
         log(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
 
 
@@ -391,7 +396,13 @@ def main() -> int:
                        (35.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
         shape=f"{b} lanes x {na} x {nb}, d 33",
     )
-    del idxk, mutk, idxp, mutp, far
+    # The launch alone, on the wrapper's norms (two torch.sum passes over the
+    # features, which the row's ms includes).
+    asq, bsq = tnn._sq_norms(fa, sm), tnn._sq_norms(fb, tm)
+    results["lane_mutual"]["launch_ms"] = cuda_ms(lambda: nn_lane.LANE_MUTUAL.launch(
+        dev, fa.data_ptr(), fb.data_ptr(), asq.data_ptr(), bsq.data_ptr(), sm.data_ptr(),
+        tm.data_ptr(), idxk.data_ptr(), mutk.data_ptr(), b, na, nb), 5)
+    del idxk, mutk, idxp, mutp, far, asq, bsq
 
     # Kernel 7: the 33-D forward NN per lane (path C's correspondences), on
     # the same jittered, thinned features.
@@ -421,6 +432,10 @@ def main() -> int:
                        (34.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
         shape=f"{b} lanes x {na} x {nb}, d 33",
     )
+    # The launch alone, on the wrapper's tsq (the row's ms adds it and |q|^2).
+    results["lane_nn_wide"]["launch_ms"] = cuda_ms(lambda: nn_lane.LANE_NN_WIDE.launch(
+        dev, fa.data_ptr(), fb.data_ptr(), tsq.data_ptr(), sm.data_ptr(), tm.data_ptr(),
+        d2k.data_ptr(), idxk.data_ptr(), b, na, nb, 33), 5)
     del d2k, idxk, d2p, idxp, tsq
 
     # Kernel 1 at the rescue's verification shape: VERIFY_CANDIDATES poses a
@@ -544,8 +559,9 @@ def main() -> int:
     del H, e, F, c, v, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
     torch.cuda.empty_cache()
     for name, r in results.items():
+        launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
         log(f"kernel {name}: agree {r['agree']:.6f}, max abs err {r['max_abs_err']:.3g}; "
-            f"{LANES} lanes: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"{LANES} lanes: kernel {r['ms']:.4f} ms{launch}, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
     # --- 5. main path -----------------------------------------------------
@@ -645,8 +661,9 @@ def main() -> int:
             # A kernel whose module a path had not imported yet was launched 0 times.
             "launches_by_path": {path: counts.get(kern, 0) for path, counts in by_path.items()},
         }
-        row.update({key: r[key] for key in ("ms_verification", "bound_ms_verification",
-                                            "shape_verification") if key in r})
+        row.update({key: r[key] for key in ("launch_ms", "ms_verification",
+                                            "bound_ms_verification", "shape_verification")
+                    if key in r})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

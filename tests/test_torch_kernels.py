@@ -301,6 +301,135 @@ def test_lane_nn_wide_kernel_matches_plain(cuda_device):
     assert torch.gather(tm, 1, idxk.long()).all()
 
 
+def _fpfh_grid_case(case, rng):
+    """(a [B, Na, 33], b [B, Nb, 33], mask_a, mask_b) on an integer grid: small
+    integer features, so every fp32 sum is exact in any order and the plain
+    version's cuBLAS product has the kernels' bits.  Cases of the FPFH lane
+    tile (128 listed rows a tile): exact ties inside a tile and across tiles,
+    duplicated query rows, a valid target only at a tile's end, a lane with
+    no valid target and one with no valid query, Na != Nb and neither a
+    multiple of 128, B = 1, no masks, a mask that is a strided view at an odd
+    byte offset."""
+    B, na, nb = 3, 300, 260
+    if case == "one_lane":
+        B = 1
+    elif case == "ragged":
+        B, na, nb = 5, 1100, 389
+    a = rng.integers(0, 4, size=(B, na, 33)).astype(np.float32)
+    b = rng.integers(0, 4, size=(B, nb, 33)).astype(np.float32)
+    ma = rng.random((B, na)) > 0.3
+    mb = rng.random((B, nb)) > 0.3
+    if case == "ties":
+        mb[:, :200] = True
+        b[:, 200] = b[:, 7]  # twin targets, in the first and the second tile
+        b[:, 6] = b[:, 5]    # twin targets in one tile
+        mb[:, 200] = True
+        a[:, 3] = b[:, 7]    # two query rows at distance 0 from both twins
+        a[:, 150] = b[:, 7]
+        ma[:, [3, 150]] = True
+    elif case == "tile_end":
+        mb[:] = False
+        mb[0, 127] = True        # the end of the first 128 targets
+        mb[1, :127] = True       # listed position 127, the first tile's end,
+        mb[1, 255] = True        # is target 255
+        mb[2, nb - 1] = True     # the lane's last row
+    elif case == "empty":
+        mb[1] = False  # no valid target: the BIG-biased entries decide
+        ma[2] = False  # no valid query
+    t = lambda x: torch.tensor(x, device="cuda")  # noqa: E731
+    if case == "no_mask":
+        return t(a), t(b), None, None
+    ma, mb = t(ma), t(mb)
+    if case == "sliced_mask":
+        wide = torch.zeros((B + 1, na + 3), dtype=torch.bool, device="cuda")
+        wide[1:, 3:] = ma
+        ma = wide[1:, 3:]
+        assert not ma.is_contiguous() and ma.data_ptr() % 16
+    return t(a), t(b), ma, mb
+
+
+FPFH_GRID_CASES = ["grid", "ties", "tile_end", "empty", "ragged", "one_lane", "no_mask",
+                   "sliced_mask"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FPFH_GRID_CASES)
+def test_lane_mutual_kernel_integer_grid_exact(cuda_device, case):
+    """Kernel 2 on the FPFH lane tile, one launch: idx equal to the plain
+    version's on every valid query row and mutual on every row."""
+    a, b, ma, mb = _fpfh_grid_case(case, np.random.default_rng(20))
+    before = KERNELS["lane_mutual"].launches
+    idxk, mutk = nn_lane.nn_mutual_mask_lane(a, b, ma, mb)
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(a, b, ma, mb)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_mutual"].launches == before + 1
+    va = torch.ones(a.shape[:2], dtype=torch.bool, device=cuda_device) if ma is None else ma
+    assert torch.equal(idxk[va], idxp[va])
+    assert torch.equal(mutk, mutp)
+    assert ((idxk >= 0) & (idxk < b.shape[1])).all()
+    if case == "ties":  # both rows pick the first twin, and both pass
+        assert (idxk[:, 3] == 7).all() and (idxk[:, 150] == 7).all()
+        assert mutk[:, 3].all() and mutk[:, 150].all()
+    if case == "empty":
+        assert (idxk[1][va[1]] == 0).all() and not mutk[2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FPFH_GRID_CASES)
+def test_lane_nn_wide_kernel_integer_grid_exact(cuda_device, case):
+    """Kernel 7 at d = 33 on the FPFH lane tile, one launch: d2 and idx equal
+    to the plain version's on every valid query row (the query mask passed)."""
+    q, t, qm, tm = _fpfh_grid_case(case, np.random.default_rng(21))
+    before = KERNELS["lane_nn_wide"].launches
+    d2k, idxk = nn_lane.nn_search_lane(q, t, qm, tm)
+    d2p, idxp = nn_lane.nn_search_lane_plain(q, t, qm, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_nn_wide"].launches == before + 1
+    vq = torch.ones(q.shape[:2], dtype=torch.bool, device=cuda_device) if qm is None else qm
+    assert torch.equal(idxk[vq], idxp[vq])
+    assert torch.equal(d2k[vq], d2p[vq])
+    assert ((idxk >= 0) & (idxk < t.shape[1])).all()
+    if case == "tile_end":
+        assert (idxk[0][vq[0]] == 127).all() and (idxk[2][vq[2]] == t.shape[1] - 1).all()
+
+
+@pytest.mark.gpu
+def test_lane_nn_wide_fpfh_route_matches_kernel_5_per_lane(cuda_device):
+    """Kernel 7 at d = 33 against kernel 5 (``t3t_nn_tiled_wide``, the same
+    fmaf chain and -2 scale) run on each lane alone, on real-valued
+    features: bit for bit on every valid query row, so the FPFH lane tile
+    keeps a valid entry's bits."""
+    rng = np.random.default_rng(22)
+    B, M, N = 3, 700, 1100
+    q = torch.tensor(rng.random((B, M, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.random((B, N, 33)) * 50, dtype=torch.float32, device=cuda_device)
+    qm = torch.tensor(rng.random((B, M)) > 0.25, device=cuda_device)
+    tm = torch.tensor(rng.random((B, N)) > 0.25, device=cuda_device)
+    d2k, idxk = nn_lane.nn_search_lane(q, t, qm, tm)
+    for lane in range(B):
+        before = KERNELS["nn_tiled_wide"].launches
+        d2t, idxt = tnn.nn_search_tiled(q[lane], t[lane], None, tm[lane])
+        torch.cuda.synchronize()
+        assert KERNELS["nn_tiled_wide"].launches == before + 1
+        v = qm[lane]
+        assert torch.equal(idxk[lane][v], idxt[v])
+        assert torch.equal(d2k[lane][v], d2t[v])
+
+
+@pytest.mark.gpu
+def test_fpfh_lane_tile_takes_at_most_its_rows(cuda_device):
+    """The FPFH lane tile keeps a lane's row lists in shared memory: above
+    FPFH_MAX_ROWS rows a side both wrappers raise rather than launch."""
+    big = torch.zeros(1, nn_lane.FPFH_MAX_ROWS + 1, 33, device=cuda_device)
+    small = torch.zeros(1, 8, 33, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        nn_lane.nn_mutual_mask_lane(big, small)
+    with pytest.raises(NotImplementedError):
+        nn_lane.nn_mutual_mask_lane(small, big)
+    with pytest.raises(NotImplementedError):
+        nn_lane.nn_search_lane(small, big)
+
+
 @pytest.mark.gpu
 def test_lane_nn_kernel_candidate_groups_match_copied_targets(cuda_device):
     """The rescue's verification: C candidate moves of a lane's source are

@@ -202,6 +202,62 @@ def test_nn_mutual_mask_lane_approx_is_fp32():
 
 
 # ---------------------------------------------------------------------------
+# Kernels 2 and 7 on an integer grid: the tie semantics the card tests rely
+# on (tests/test_torch_kernels.py holds the kernels to these plain versions
+# exactly on such inputs).  Small integer features make every fp32 sum exact
+# in any order, so the tolerance is exact: first index on ties, every tying
+# row mutual, and a lane with no valid target decided by the BIG-biased
+# entries (idx 0, d2 = BIG), in JAX's Pallas kernels as in the plain versions.
+# ---------------------------------------------------------------------------
+
+
+def _fpfh_grid(rng, B, na, nb):
+    a = rng.integers(0, 4, size=(B, na, 33)).astype(np.float32)
+    b = rng.integers(0, 4, size=(B, nb, 33)).astype(np.float32)
+    ma = rng.random((B, na)) > 0.3
+    mb = rng.random((B, nb)) > 0.3
+    b[:, nb - 1] = b[:, 2]  # twin targets far apart, both valid
+    mb[:, [2, nb - 1]] = True
+    a[:, 0] = b[:, 2]       # two query rows at distance 0 from both twins
+    a[:, na - 1] = b[:, 2]
+    ma[:, [0, na - 1]] = True
+    mb[1] = False           # lane 1: no valid target
+    ma[2] = False           # lane 2: no valid query
+    return a, b, ma, mb
+
+
+@pytest.mark.parametrize("B,na,nb", [(3, 130, 270), (4, 300, 90)])
+def test_nn_mutual_lane_plain_integer_grid_matches_jax(B, na, nb):
+    a, b, ma, mb = _fpfh_grid(np.random.default_rng(30 + na), B, na, nb)
+    idxl, mutl = jax.vmap(
+        lambda x, y, u, v: jlane.nn_mutual_mask_lane(x, y, u, v, interpret=True)
+    )(jnp.asarray(a), jnp.asarray(b), jnp.asarray(ma), jnp.asarray(mb))
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(_t(a), _t(b), _t(ma), _t(mb))
+    # idx of a masked row is unspecified; mutual is exact on every row.
+    np.testing.assert_array_equal(idxp.numpy()[ma], np.asarray(idxl)[ma])
+    np.testing.assert_array_equal(mutp.numpy(), np.asarray(mutl))
+    full = [0] + list(range(3, B))  # lanes with valid rows on both sides
+    assert (idxp[full, 0] == 2).all() and (idxp[full, na - 1] == 2).all()
+    assert mutp[full][:, [0, na - 1]].all()
+    assert (idxp[1][_t(ma[1])] == 0).all() and mutp[1].equal(_t(ma[1]))
+    assert not mutp[2].any()
+
+
+@pytest.mark.parametrize("B,nq,nt", [(3, 130, 270), (4, 300, 90)])
+def test_nn_search_lane_plain_wide_integer_grid_matches_jax_vmap(B, nq, nt):
+    q, t, qm, tm = _fpfh_grid(np.random.default_rng(40 + nq), B, nq, nt)
+    d2l, idxl = jax.vmap(lambda x, y, v: jlane.nn_search_lane(x, y, None, v, interpret=True))(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(tm)
+    )
+    d2p, idxp = nn_lane.nn_search_lane_plain(_t(q), _t(t), _t(qm), _t(tm))
+    np.testing.assert_array_equal(idxp.numpy(), np.asarray(idxl))
+    np.testing.assert_array_equal(d2p.numpy(), np.asarray(d2l))
+    full = [0, 2] + list(range(3, B))  # lanes with a valid target
+    assert (idxp[full, 0] == 2).all() and (d2p[full, 0] == 0).all()
+    assert (idxp[1] == 0).all() and (d2p[1] == 1e30).all()
+
+
+# ---------------------------------------------------------------------------
 # Kernel 3: RANSAC score (counts exact on tie-free fp32 inputs)
 # ---------------------------------------------------------------------------
 

@@ -4,165 +4,181 @@
 // correspondence stage of registration/fused.py with nn_impl="lane").
 //
 // For pair lane b, query row i (features a_i) and target column j (b_j):
-//   d2(i, j) = (asq[i] + bsq[j]) - 2 a_i . b_j
-// where asq / bsq are the squared norms, BIG (1e30) at masked rows and
-// columns.  Per query row the outputs are d2_fwd = min_j d2(i, j), idx = its
-// first argmin, and colb = colmin[idx] with colmin[j] = min_i d2(i, j) over
-// EVERY query row of the lane; the caller's mutuality test is
-// d2_fwd <= colb.  Always fp32, as the TPU kernel is.
+//   d2(i, j) = fmaf(-2, a_i . b_j, asq[i] + bsq[j])
+// with asq / bsq the squared norms (BIG, 1e30, at masked rows and columns)
+// and the dot one fmaf chain over k = 0 .. 32.  Per valid query row the
+// outputs are idx = the first argmin over j of d2(i, j) and mutual =
+// d2(i, idx) <= colmin[idx], colmin[j] = min_i d2(i, j) over EVERY query row
+// of the lane; a masked row gets idx 0 and mutual false.  Always fp32, as
+// the TPU kernel is.
 //
 // The TPU kernel gets global column minima by keeping a whole lane resident
-// in VMEM.  Hopper blocks are far smaller and run in no order, so this runs
-// two passes:
-//   1. column_min_kernel: one thread per target column holds b_j in
-//      registers while the lane's query rows stream through shared memory;
-//      writes colmin [B, Nb] to scratch that the wrapper allocates;
-//   2. row_argmin_kernel: one thread per query row holds a_i in registers
-//      while the target columns (with their colmin) stream through shared
-//      memory; keeps the running (min, first argmin, colmin at argmin).
-// Both passes compute an entry through dot33() and pair_d2(): the same fmaf
-// chain over k = 0..32 and the same final rounding.  fma(x, y, acc) equals
-// fma(y, x, acc) exactly, so entry (i, j) is bit-identical in both passes
-// and a true mutual pair always passes d2_fwd <= colmin[idx].
+// in VMEM.  Here one block owns one lane, so its column minima are exact
+// without a second pass or global atomics:
+//   - it lists the lane's valid query rows and valid target rows in index
+//     order (fpfh_tile.cuh:compact_rows) and computes only those entries:
+//     a masked query row's entries are >= BIG - 2 |a||b| and cannot lower a
+//     valid column's minimum, and a masked column never wins a row.  A lane
+//     with no valid target lists every target instead (their bsq is BIG),
+//     so the biased entries decide there, as in the plain version;
+//   - it loops over tiles of 128 listed query rows, and for each sweeps
+//     every tile of 128 listed targets (fpfh_tile.cuh:sweep_targets: 8 x 8
+//     entries a thread, the next target tile copied while this one is
+//     computed).  Each entry is computed once and feeds both tests, so a
+//     true mutual pair always passes d2(i, idx) <= colmin[idx];
+//   - a row's (min, first argmin) stays in registers over the sweep, then
+//     the 16 threads of the row merge it and write it to shared memory;
+//   - a tile's column minima (over the thread's 8 rows, then the two rows
+//     of threads of a warp) fold into colmin in shared memory by atomicMin
+//     on order-preserving int bits (min is exact in any order);
+//   - once every query tile is done, each valid row reads colmin at its
+//     pick and writes idx and mutual.
 //
-// What bounds it on the H100: operations.  At B=2048, Na=Nb=1024 each pass
-// is 2.1 G entries x 33 FMAs against ~0.55 GB of features.  Streamed rows are
-// staged with a stride of 36 floats so a thread reads each as eight float4
-// broadcasts plus one scalar: one shared load per four FMAs.
+// What bounds it on the H100: operations.  At B = 2048, Na = Nb = 1024 and
+// ~70% valid rows a side, ~1.06e9 valid entries of 35 fp32 instructions (33
+// FMAs, the norms' add, the -2 scale's FMA) against ~0.3 GB of valid rows.
+// Each entry is computed once, for its row and its column alike, and only
+// listed rows are: ~1.15x the valid entries (tiles of 128 listed rows)
+// where two passes over every entry would compute ~4x.  An entry costs its
+// 35 instructions, two minima and 1/16 of a shared load.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "fpfh_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kD = 33;       // FPFH width
-constexpr int kStride = 36;  // shared row stride: 16-byte aligned rows
-constexpr int kRows = 128;   // rows (pass 1) or columns (pass 2) per stage
+using namespace fpfh;
 
-__device__ __forceinline__ float dot33(const float (&x)[kD], const float* __restrict__ row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    const float4 y = r4[v];
-    acc = __fmaf_rn(x[4 * v], y.x, acc);
-    acc = __fmaf_rn(x[4 * v + 1], y.y, acc);
-    acc = __fmaf_rn(x[4 * v + 2], y.z, acc);
-    acc = __fmaf_rn(x[4 * v + 3], y.w, acc);
-  }
-  return __fmaf_rn(x[32], row[32], acc);
+// Dynamic shared memory: the query tile, two target tiles and their norms,
+// then the per-lane lists (floats and ints, 4 bytes each).
+__host__ __device__ constexpr size_t smem_bytes(int Na, int Nb) {
+  return 4 * (3 * static_cast<size_t>(kTileFloats + kTile) + 3 * static_cast<size_t>(Na) +
+              2 * static_cast<size_t>(Nb));
 }
 
-__device__ __forceinline__ float pair_d2(float dot, float xsq, float ysq) {
-  return __fmaf_rn(-2.0f, dot, __fadd_rn(xsq, ysq));
-}
+__global__ void __launch_bounds__(kThreads, 2)
+lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ asq, const float* __restrict__ bsq,
+                   const unsigned char* __restrict__ mask_a,
+                   const unsigned char* __restrict__ mask_b, int* __restrict__ idx_out,
+                   unsigned char* __restrict__ mutual_out, int Na, int Nb) {
+  extern __shared__ float4 dyn[];
+  float* qs = reinterpret_cast<float*>(dyn);    // [kTileFloats] the query tile
+  float* ts = qs + kTileFloats;                 // [2][kTileFloats] target tiles
+  float* qsq = ts + 2 * kTileFloats;            // [kTile]
+  float* tsq = qsq + kTile;                     // [2][kTile]
+  float* rbest = tsq + 2 * kTile;               // [Na] a listed row's best d2
+  int* rpick = reinterpret_cast<int*>(rbest + Na);  // [Na] its target list position
+  int* qi = rpick + Na;                         // [Na] listed query rows
+  int* tj = qi + Na;                            // [Nb] listed targets
+  int* colkey = tj + Nb;                        // [Nb] colmin as order_key bits
+  __shared__ int warp_counts[kWarps];
 
-// Stage n rows of src ([*, kD], starting at row `first`) into sh with stride kStride.
-__device__ __forceinline__ void stage_rows(float* __restrict__ sh,
-                                           const float* __restrict__ src,
-                                           size_t first, int n) {
-  for (int e = threadIdx.x; e < n * kStride; e += kThreads) {
-    const int r = e / kStride;
-    const int k = e - r * kStride;
-    sh[e] = k < kD ? src[(first + r) * kD + k] : 0.f;
-  }
-}
+  const size_t lane = blockIdx.x;
+  const float* la = a + lane * Na * kD;
+  const float* lb = b + lane * Nb * kD;
+  const float* lasq = asq + lane * Na;
+  const float* lbsq = bsq + lane * Nb;
+  const unsigned char* lma = mask_a == nullptr ? nullptr : mask_a + lane * Na;
+  const unsigned char* lmb = mask_b == nullptr ? nullptr : mask_b + lane * Nb;
+  int* lidx = idx_out + lane * Na;
+  unsigned char* lmut = mutual_out + lane * Na;
+  const int tid = threadIdx.x;
 
-__global__ void __launch_bounds__(kThreads)
-column_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ asq, const float* __restrict__ bsq,
-                  float* __restrict__ colmin, int Na, int Nb) {
-  __shared__ __align__(16) float rows[kRows * kStride];
-  __shared__ float rsq[kRows];
-  const int lane = blockIdx.y;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  float x[kD];
-  float xsq = 0.f;
-  const size_t jb = static_cast<size_t>(lane) * Nb + (j < Nb ? j : 0);
-#pragma unroll
-  for (int k = 0; k < kD; ++k) x[k] = j < Nb ? b[jb * kD + k] : 0.f;
-  if (j < Nb) xsq = bsq[jb];
-
-  float cmin = CUDART_INF_F;
-  for (int base = 0; base < Na; base += kRows) {
-    const int n = min(kRows, Na - base);
-    const size_t first = static_cast<size_t>(lane) * Na + base;
-    __syncthreads();
-    stage_rows(rows, a, first, n);
-    for (int r = threadIdx.x; r < n; r += kThreads) rsq[r] = asq[first + r];
-    __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      cmin = fminf(cmin, pair_d2(dot33(x, rows + r * kStride), xsq, rsq[r]));
-    }
-  }
-  if (j < Nb) colmin[jb] = cmin;
-}
-
-__global__ void __launch_bounds__(kThreads)
-row_argmin_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const float* __restrict__ asq, const float* __restrict__ bsq,
-                  const float* __restrict__ colmin, float* __restrict__ d2_out,
-                  int* __restrict__ idx_out, float* __restrict__ colb_out,
-                  int Na, int Nb) {
-  __shared__ __align__(16) float cols[kRows * kStride];
-  __shared__ float csq[kRows];
-  __shared__ float cmin[kRows];
-  const int lane = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  float x[kD];
-  float xsq = 0.f;
-  const size_t ia = static_cast<size_t>(lane) * Na + (i < Na ? i : 0);
-#pragma unroll
-  for (int k = 0; k < kD; ++k) x[k] = i < Na ? a[ia * kD + k] : 0.f;
-  if (i < Na) xsq = asq[ia];
-
-  float best = CUDART_INF_F;
-  int best_j = 0;
-  float best_col = CUDART_INF_F;
-  for (int base = 0; base < Nb; base += kRows) {
-    const int n = min(kRows, Nb - base);
-    const size_t first = static_cast<size_t>(lane) * Nb + base;
-    __syncthreads();
-    stage_rows(cols, b, first, n);
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      csq[c] = bsq[first + c];
-      cmin[c] = colmin[first + c];
-    }
-    __syncthreads();
-    for (int c = 0; c < n; ++c) {
-      const float d = pair_d2(dot33(x, cols + c * kStride), xsq, csq[c]);
-      if (d < best) {  // strict: ties keep the smaller index
-        best = d;
-        best_j = base + c;
-        best_col = cmin[c];
+  if (lma != nullptr) {
+    for (int i = tid; i < Na; i += kThreads) {
+      if (!lma[i]) {
+        lidx[i] = 0;
+        lmut[i] = 0;
       }
     }
   }
-  if (i < Na) {
-    d2_out[ia] = best;
-    idx_out[ia] = best_j;
-    colb_out[ia] = best_col;
+  const int nva = compact_rows(lma, Na, 0, Na, qi, warp_counts);
+  int nvb = compact_rows(lmb, Nb, 0, Nb, tj, warp_counts);
+  if (nvb == 0) {  // no valid target: every target, at its BIG norm
+    for (int j = tid; j < Nb; j += kThreads) tj[j] = j;
+    nvb = Nb;
+  }
+  for (int j = tid; j < Nb; j += kThreads) colkey[j] = order_key(CUDART_INF_F);
+  __syncthreads();
+
+  const int ty = tid >> 4, tx = tid & 15;
+  const bool col_writer = (tid & 31) < 16;  // one of the warp's two rows of threads
+  for (int q0 = 0; q0 < nva; q0 += kTile) {
+    stage_tile(qs, qsq, la, lasq, qi, q0, nva);
+    float best[8];
+    int best_j[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      best[e] = CUDART_INF_F;
+      best_j[e] = 0;
+    }
+    sweep_targets(qs, ts, tsq, lb, lbsq, tj, nvb,
+                  [&](float (&acc)[8][8], const float* tsq_t, int first) {
+      float qn[8], tn[8];
+      load8(qsq, ty, qn);
+      load8(tsq_t, tx, tn);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(-2.0f, acc[r][c], __fadd_rn(qn[r], tn[c]));
+        row_update(acc[r], tx, first, best[r], best_j[r]);
+      }
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float m = acc[0][c];
+#pragma unroll
+        for (int r = 1; r < 8; ++r) m = fminf(m, acc[r][c]);
+        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+        const int j = first + tile_pos(tx, c);
+        if (col_writer && j < nvb) atomicMin(colkey + j, order_key(m));
+      }
+    });
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      row_merge(best[r], best_j[r]);
+      const int s = q0 + tile_pos(ty, r);
+      if (tx == 0 && s < nva) {
+        rbest[s] = best[r];
+        rpick[s] = best_j[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < nva; s += kThreads) {
+    const int i = qi[s], p = rpick[s];
+    lidx[i] = tj[p];
+    lmut[i] = rbest[s] <= key_value(colkey[p]) ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// a [B, Na, 33], b [B, Nb, 33], asq [B, Na], bsq [B, Nb] float32, contiguous;
-// colmin [B, Nb] is scratch.  Writes d2 [B, Na], idx [B, Na] int32 and
-// colb [B, Na].  Launches both passes on ``stream`` and returns
-// cudaGetLastError().
-extern "C" int t3t_lane_mutual(const float* a, const float* b, const float* asq,
-                               const float* bsq, float* colmin, float* d2, int* idx,
-                               float* colb, int B, int Na, int Nb,
+// a [B, Na, 33], b [B, Nb, 33], asq [B, Na], bsq [B, Nb] float32, contiguous,
+// the norms BIG at masked rows; mask_a [B, Na] and mask_b [B, Nb] bool (one
+// byte each; null: every row valid).  Writes idx [B, Na] int32 and mutual
+// [B, Na] bool.  One block a lane; launches on ``stream`` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue where a lane's lists do not
+// fit in shared memory.
+extern "C" int t3t_lane_mutual(const float* a, const float* b, const float* asq, const float* bsq,
+                               const unsigned char* mask_a, const unsigned char* mask_b, int* idx,
+                               unsigned char* mutual, int B, int Na, int Nb,
                                cudaStream_t stream) {
   if (B <= 0 || Na <= 0 || Nb <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid_cols((Nb + kThreads - 1) / kThreads, B);
-  column_min_kernel<<<grid_cols, kThreads, 0, stream>>>(a, b, asq, bsq, colmin, Na, Nb);
-  cudaError_t err = cudaGetLastError();
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_rows((Na + kThreads - 1) / kThreads, B);
-  row_argmin_kernel<<<grid_rows, kThreads, 0, stream>>>(a, b, asq, bsq, colmin, d2, idx,
-                                                        colb, Na, Nb);
+  const size_t smem = smem_bytes(Na, Nb);
+  if (smem + 64 > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(lane_mutual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lane_mutual_kernel<<<B, kThreads, smem, stream>>>(a, b, asq, bsq, mask_a, mask_b, idx, mutual,
+                                                    Na, Nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,12 @@ Two wrappers with the JAX contracts, batched over a leading pair dimension:
     csrc/lane_nn.cu: ``t3t_lane_nn_smalld`` for d = 3 (replacing
     ``_lane_nn_smalld_kernel``) — the ICP and rescue-verification searches —
     and ``t3t_lane_nn_wide`` for 8 <= d <= 64 (replacing
-    ``_lane_nn_mxu_kernel``) — the non-mutual FPFH correspondences;
+    ``_lane_nn_mxu_kernel``) — the non-mutual FPFH correspondences, on the
+    FPFH lane tile (csrc/fpfh_tile.cuh) at d = 33;
   - ``nn_mutual_mask_lane``: forward 33-D NN plus the mutuality test against
-    GLOBAL column minima (kernel csrc/lane_mutual.cu, replacing
-    ``_lane_mutual_kernel``) — the FPFH correspondence stage.
+    GLOBAL column minima (kernel csrc/lane_mutual.cu, one block a lane on the
+    FPFH lane tile, replacing ``_lane_mutual_kernel``) — the FPFH
+    correspondence stage.
 
 A wrapper given CPU tensors runs the plain PyTorch version (ops/nn.py,
 chunked over the pair dimension); given CUDA tensors it launches its kernel
@@ -22,7 +24,6 @@ import torch
 
 from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype, dispatch
 from tpu3dm_torch.ops.nn import (
-    BIG,
     SMALL_D_MAX,
     WIDE_MAX_D,
     _sq_norms,
@@ -36,19 +37,45 @@ LANE_NN = Kernel(
     [PTR, PTR, PTR, PTR, PTR, INT, INT, INT],
 )
 LANE_NN_WIDE = Kernel(
-    "lane_nn_wide", "lane_nn.cu", "t3t_lane_nn_wide", [PTR] * 5 + [INT] * 4,
+    "lane_nn_wide", "lane_nn.cu", "t3t_lane_nn_wide", [PTR] * 7 + [INT] * 4,
 )
 LANE_MUTUAL = Kernel(
-    "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual",
-    [PTR] * 8 + [INT, INT, INT],
+    "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual", [PTR] * 8 + [INT] * 3,
 )
-FPFH_DIM = 33  # the mutual kernel's feature width
+FPFH_DIM = 33  # the FPFH lane tile's feature width (kernel 2; kernel 7's d = 33 route)
+# Rows a lane may hold on a side for the FPFH lane tile: its row lists live in
+# shared memory (kernel 2: 12 bytes a query row and 8 a target row besides
+# ~55 KB of tiles, within the H100's 227 KB a block).
+FPFH_MAX_ROWS = 8192
 
 
 def _check_batched(where: str, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.ndim != 3 or y.ndim != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
         raise ValueError(f"{where}: expected [B, M, d] and [B, N, d], got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
+
+
+def _lane_mask(where: str, mask: torch.Tensor | None, b: int, n: int,
+               dev: torch.device) -> torch.Tensor | None:
+    """A [b, n] bool mask for a kernel that reads it a byte at a time (any
+    offset will do), made contiguous; None stays None (every row valid)."""
+    if mask is None:
+        return None
+    check_dtype(where, torch.bool, mask=mask)
+    if mask.shape != (b, n) or mask.device != dev:
+        raise ValueError(f"{where}: mask {tuple(mask.shape)} on {mask.device} does not match "
+                         f"{b} lanes x {n} rows on {dev}")
+    return mask.contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check_fpfh_rows(where: str, *rows: int) -> None:
+    if max(rows) > FPFH_MAX_ROWS:
+        raise NotImplementedError(f"{where}: the FPFH lane tile takes at most {FPFH_MAX_ROWS} "
+                                  f"rows a lane, got {max(rows)}")
 
 
 def nn_search_lane_plain(query, target, query_mask=None, target_mask=None):
@@ -75,16 +102,17 @@ def nn_search_lane(
     Args:
       query: [B, M, d] float32; target: [B, N, d] float32.  On CUDA d = 3 or
         8 <= d <= 64 (the kernels' widths); other widths raise there.
-      query_mask: ignored (masked queries get arbitrary results, as in JAX).
+      query_mask: [B, M] bool or None.  Masked queries get unspecified
+        results, as in JAX: the plain version and the d != 33 kernels
+        compute them, the d = 33 kernel skips them (idx 0).
       target_mask: [B, N] bool or None; masked targets never win.
 
     Returns (d2 [B, M] float32, idx [B, M] int32), ties to the smaller index.
     For d < 8, d2 sums the squared differences; for d >= 8 it is
     max(min_j (|t_j|^2 - 2 q.t_j) + |q|^2, 0), as in the TPU kernels.
     """
-    del query_mask
     _check_batched("nn_search_lane", query, target)
-    if dispatch("nn_search_lane", query, target, target_mask) == "cpu":
+    if dispatch("nn_search_lane", query, target, query_mask, target_mask) == "cpu":
         return nn_search_lane_plain(query, target, None, target_mask)
     b, m, n, d = query.shape[0], query.shape[1], target.shape[1], query.shape[2]
     where = "nn_search_lane"
@@ -96,27 +124,23 @@ def nn_search_lane(
             raise NotImplementedError(f"{where}: below d = {SMALL_D_MAX} the kernel takes d = 3, "
                                       f"got {d}")
         dev = check_cuda_tensors(where, b, query=query, target=target, d2=out, idx=idx)
-        if target_mask is not None:
-            check_dtype(where, torch.bool, target_mask=target_mask)
-            if target_mask.shape != (b, n) or target_mask.device != dev:
-                raise ValueError(f"{where}: target_mask {tuple(target_mask.shape)} on "
-                                 f"{target_mask.device} does not match target "
-                                 f"{tuple(target.shape)} on {dev}")
-            # The kernel reads the mask a byte at a time: any offset will do.
-            target_mask = target_mask.contiguous()
+        target_mask = _lane_mask(where, target_mask, b, n, dev)
         LANE_NN.launch(
-            dev, query.data_ptr(), target.data_ptr(),
-            None if target_mask is None else target_mask.data_ptr(),
+            dev, query.data_ptr(), target.data_ptr(), _ptr(target_mask),
             out.data_ptr(), idx.data_ptr(), b, m, n,
         )
         return out, idx
     if d > WIDE_MAX_D:
         raise NotImplementedError(f"{where}: the kernel takes d <= {WIDE_MAX_D}, got {d}")
+    if d == FPFH_DIM:
+        _check_fpfh_rows(where, n)
     tsq = _sq_norms(target, target_mask)
     dev = check_cuda_tensors(where, b, query=query, target=target, tsq=tsq, part=out, idx=idx)
+    query_mask = _lane_mask(where, query_mask, b, m, dev)
+    target_mask = _lane_mask(where, target_mask, b, n, dev)
     LANE_NN_WIDE.launch(
-        dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(),
-        out.data_ptr(), idx.data_ptr(), b, m, n, d,
+        dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(), _ptr(query_mask),
+        _ptr(target_mask), out.data_ptr(), idx.data_ptr(), b, m, n, d,
     )
     return torch.clamp_min(out + torch.sum(query * query, dim=-1), 0.0), idx
 
@@ -154,7 +178,8 @@ def nn_mutual_mask_lane(
         as the TPU kernel's is.
 
     Returns (idx_fwd [B, Na] int32, mutual [B, Na] bool).  On exact ties
-    every tying row passes the mutuality test.
+    every tying row passes the mutuality test.  A masked row is never
+    mutual; its idx is unspecified (the kernel writes 0).
     """
     del approx
     _check_batched("nn_mutual_mask_lane", a, b)
@@ -164,25 +189,19 @@ def nn_mutual_mask_lane(
     if a.shape[-1] != FPFH_DIM:
         raise NotImplementedError(f"{where}: the kernel takes d = {FPFH_DIM}, got {a.shape[-1]}")
     nl, na, nb = a.shape[0], a.shape[1], b.shape[1]
-    asq = torch.sum(a * a, dim=-1)
-    bsq = torch.sum(b * b, dim=-1)
-    if mask_a is not None:
-        asq = torch.where(mask_a, asq, BIG)
-    if mask_b is not None:
-        bsq = torch.where(mask_b, bsq, BIG)
-    colmin = torch.empty((nl, nb), dtype=torch.float32, device=a.device)
-    d2 = torch.empty((nl, na), dtype=torch.float32, device=a.device)
+    _check_fpfh_rows(where, na, nb)
+    # The norms keep BIG at masked rows: a lane with no valid target computes
+    # the biased entries, as the plain version does.
+    asq = _sq_norms(a, mask_a)
+    bsq = _sq_norms(b, mask_b)
     idx = torch.empty((nl, na), dtype=torch.int32, device=a.device)
-    colb = torch.empty((nl, na), dtype=torch.float32, device=a.device)
+    mutual = torch.empty((nl, na), dtype=torch.bool, device=a.device)
     check_dtype(where, torch.float32, a=a, b=b)
-    dev = check_cuda_tensors(
-        where, nl, a=a, b=b, asq=asq, bsq=bsq, colmin=colmin, d2=d2, idx=idx, colb=colb
-    )
+    dev = check_cuda_tensors(where, nl, a=a, b=b, asq=asq, bsq=bsq, idx=idx, mutual=mutual)
+    mask_a = _lane_mask(where, mask_a, nl, na, dev)
+    mask_b = _lane_mask(where, mask_b, nl, nb, dev)
     LANE_MUTUAL.launch(
-        dev, a.data_ptr(), b.data_ptr(), asq.data_ptr(), bsq.data_ptr(),
-        colmin.data_ptr(), d2.data_ptr(), idx.data_ptr(), colb.data_ptr(), nl, na, nb,
+        dev, a.data_ptr(), b.data_ptr(), asq.data_ptr(), bsq.data_ptr(), _ptr(mask_a),
+        _ptr(mask_b), idx.data_ptr(), mutual.data_ptr(), nl, na, nb,
     )
-    mutual = d2 <= colb
-    if mask_a is not None:
-        mutual = mutual & mask_a
     return idx, mutual
