@@ -11,11 +11,15 @@ Phases (any failure exits non-zero and prints no ok line):
      its host C++ library (the host compiler), all started together;
   3. preprocess the 8 benchmark pairs (make_benchmark_pair(20000, seed=s,
      sigma=0.01), s = 0..7) on the card, pad them to the shared capacity
-     and tile them to 2048 pair lanes, as bench.py does;
+     and tile them to 2048 pair lanes, as bench.py does; the full-resolution
+     normals of the 16 clouds timed on their own (CUDA events), and those
+     of lanes 0-3's source clouds against the same on the CPU;
   4. each kernel against its plain version at the main path's shapes (2048
      lanes, M = N = 1024, K = 4096), every lane jittered and thinned on its
      own so that no two lanes hold the same data, with kernel, plain and
-     library-yardstick times and each kernel's bound: kernels 1-2, kernel 7
+     library-yardstick times and each kernel's bound (a kernel redesigned in
+     this round also prints its parent commit's time, from PERF.md, beside
+     its own): kernels 1-2, kernel 7
      (the 33-D forward NN of path C; 2 and 7 also timed as the launch alone,
      without the wrapper's norms), kernel 1 at the rescue's verification
      shape (VERIFY_CANDIDATES moved sources a lane), both bit-equal to the
@@ -99,12 +103,17 @@ SOURCES = {
     "ransac_score_fp32_1lane": ("tpu3dm_torch/csrc/ransac_score.cu",
                                 "tpu3dm/ops/ransac_score.py:124"),
     "nn_tiled_smalld": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:138"),
+    "nn_tiled_smalld_8192": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:138"),
     "nn_tiled_wide": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:169"),
     "nn_blocksparse": ("tpu3dm_torch/csrc/nn_blocksparse.cu", "tpu3dm/ops/nn_sparse.py:199"),
     "lane_nn_wide": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:100"),
 }
 # A row that times a kernel at a second shape, and that kernel's name.
-ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score"}
+ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score", "nn_tiled_smalld_8192": "nn_tiled_smalld"}
+# Rows of the kernels redesigned last, and the time (ms) PERF.md section 6
+# gives the commit before the redesign, on an NVIDIA H100 80GB HBM3 at 700 W.
+# Printed beside the row's own time, never put into the kernels JSON line.
+PARENT_MS = {"nn_tiled_smalld": 0.5122, "nn_tiled_smalld_8192": 0.1463, "nn_blocksparse": 3.1971}
 # Launches of the fused step's counted call: the correspondence search, one
 # score chunk (approx_score: bf16), one 3-D search every ICP_SOLVES_PER_NN
 # iterations.
@@ -270,11 +279,13 @@ def main() -> int:
     # --- 3. data ------------------------------------------------------------
     cfg = PipelineConfig.with_voxel_size(0.3)
     t0 = time.time()
-    clouds, trues, moments = [], [], []
+    clouds, fulls, raw, trues, moments = [], [], [], [], []
     for s in range(PAIRS):
         sp, tp, T = make_benchmark_pair(N_POINTS, seed=s, sigma=0.01)
-        clouds.append((preprocess_points(sp, cfg.preprocess).down,
-                       preprocess_points(tp, cfg.preprocess).down))
+        ps, pt = preprocess_points(sp, cfg.preprocess), preprocess_points(tp, cfg.preprocess)
+        clouds.append((ps.down, pt.down))
+        fulls += [ps.full, pt.full]
+        raw.append(sp)
         trues.append(T)
         moments.append((sp.mean(0), sp.T @ sp / sp.shape[0]))
     torch.cuda.synchronize()
@@ -283,6 +294,8 @@ def main() -> int:
     counts = [int(c.mask.sum()) for pair in clouds for c in pair]
     log(f"preprocess: {2 * PAIRS} clouds in {ingest_s:.2f} s (first CUDA use included); "
         f"down counts {min(counts)}-{max(counts)}, shared capacity {cap}")
+    full_normals_check(fulls, raw[:4], cfg.preprocess)
+    del fulls
 
     def padded(which: int, attr: str) -> torch.Tensor:
         rows = []
@@ -560,7 +573,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, r in results.items():
         launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
-        log(f"kernel {name}: agree {r['agree']:.6f}, max abs err {r['max_abs_err']:.3g}; "
+        log(f"kernel {name}{parent_note(name)}: agree {r['agree']:.6f}, "
+            f"max abs err {r['max_abs_err']:.3g}; "
             f"{LANES} lanes: kernel {r['ms']:.4f} ms{launch}, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
@@ -670,6 +684,66 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def parent_note(name: str) -> str:
+    """The time before the redesign of a row in PARENT_MS, for its log line."""
+    if name not in PARENT_MS:
+        return ""
+    return f" (before the redesign {PARENT_MS[name]:.4f} ms, PERF.md section 6)"
+
+
+def full_normals_check(fulls, raw_sources, pp) -> None:
+    """The full-resolution normals of the main path's clouds: their card
+    time (CUDA events, estimate_normals or estimate_normals_capped as
+    preprocess_points picks it), and the source clouds of lanes 0-3 again
+    on the CPU.  Held to the CPU tests' tolerance (tests/test_torch_
+    preprocess.py): |n_card . n_cpu| > 0.9999 on >= 99% of valid rows, a
+    positive dot on every row more than ~6 deg from perpendicular to the
+    outward direction, masked rows 0."""
+    import torch
+
+    from tpu3dm_torch.core.cloud import from_numpy
+    from tpu3dm_torch.preprocess.normals import estimate_normals, estimate_normals_capped
+
+    def normals(pc):
+        if pp.full_normal_max_nn > 0:
+            return estimate_normals_capped(pc, pp.normal_radius, max_nn=pp.full_normal_max_nn)
+        return estimate_normals(pc, pp.normal_radius)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    start.record()
+    for pc in fulls:
+        normals(pc)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = sum(int(pc.mask.sum()) for pc in fulls)
+    worst_share, worst_dot = 1.0, 1.0
+    for i, pts in enumerate(raw_sources):
+        card = fulls[2 * i]
+        cpu = normals(from_numpy(pts, device="cpu"))
+        m = card.mask.cpu().numpy()
+        nc, nh = card.normals.cpu().numpy(), cpu.normals.numpy()
+        p = card.points.cpu().numpy()
+        dots = (nc * nh).sum(1)
+        u = p - p[m].mean(0)
+        u /= np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-12)
+        decided = m & (np.abs((nh * u).sum(1)) > 0.1)
+        worst_share = min(worst_share, float((np.abs(dots[m]) > 0.9999).mean()))
+        worst_dot = min(worst_dot, float(dots[decided].min()))
+        if not (np.all(nc[~m] == 0) and np.isfinite(nc).all()):
+            fail(f"full normals of cloud {2 * i}: non-finite, or non-zero at masked rows")
+    which = (f"the nearest {pp.full_normal_max_nn}" if pp.full_normal_max_nn > 0
+             else "every neighbour")
+    log(f"full-resolution normals: {len(fulls)} clouds, {n} points, {which} "
+        f"in radius {pp.normal_radius:g}: card {start.elapsed_time(end):.2f} ms (CUDA events), "
+        f"{wall * 1e3:.2f} ms host clock; lanes 0-3 sources vs CPU: |dot| > 0.9999 on "
+        f">= {worst_share:.6f} of valid rows, least decided dot {worst_dot:.6f}")
+    if worst_share < 0.99 or worst_dot <= 0.0:
+        fail("full-resolution normals on the card disagree with the CPU run")
 
 
 def wide_pick_check(q, t, tmask, qmask, idx_kernel, idx_plain) -> tuple[float, float]:
@@ -1008,15 +1082,21 @@ def large_phases(dev, results: dict) -> dict:
         for s in tnn.lane_slices(q.shape[0], far.shape[0]):
             torch.cdist(q[s], far).argmin(-1)
 
-    def tiled_case(label, q, t, tmask, qmask, reps, pick_rel_tol):
+    def tiled_case(label, q, t, tmask, qmask, reps, pick_rel_tol, pass_qmask=False):
         """Kernel against plain version: equal picks required where the
         arithmetic order is the same (pick_rel_tol None), else on >= 99.9% of
-        valid rows with distances within pick_rel_tol of the row's scale."""
-        d2k, ik = tnn.nn_search_tiled(q, t, None, tmask)
-        d2p, ip = tnn.nn_search_tiled_plain(q, t, None, tmask)
+        valid rows with distances within pick_rel_tol of the row's scale.
+        pass_qmask: the call passes qmask as its query mask, as the path
+        does (else None, every row computed); masked rows must then come
+        back idx 0, d2 BIG, and the row adds the launch alone."""
+        call_qmask = qmask if pass_qmask else None
+        d2k, ik = tnn.nn_search_tiled(q, t, call_qmask, tmask)
+        d2p, ip = tnn.nn_search_tiled_plain(q, t, call_qmask, tmask)
         torch.cuda.synchronize()
         agree = (ik == ip)[qmask].float().mean().item()
         err = (d2k - d2p).abs()[qmask].max().item()
+        if pass_qmask and not ((ik[~qmask] == 0).all() and (d2k[~qmask] == tnn.BIG).all()):
+            fail(f"{label}: masked query rows did not come back idx 0, d2 BIG")
         if pick_rel_tol is None:
             if agree < 1.0 or err > 0.0:
                 fail(f"{label}: picks equal on {agree:.6%}, max |d2| error {err:.3g} (exact expected)")
@@ -1033,28 +1113,36 @@ def large_phases(dev, results: dict) -> dict:
             work = ((d + 1.0) * nq * nt, PEAK_FP32_OPS)
         r = dict(
             agree=agree, max_abs_err=err,
-            ms=cuda_ms(lambda: tnn.nn_search_tiled(q, t, None, tmask), reps),
-            plain_ms=cuda_ms(lambda: tnn.nn_search_tiled_plain(q, t, None, tmask), 1),
+            ms=cuda_ms(lambda: tnn.nn_search_tiled(q, t, call_qmask, tmask), reps),
+            plain_ms=cuda_ms(lambda: tnn.nn_search_tiled_plain(q, t, call_qmask, tmask), 1),
             library_ms=cuda_ms(lambda: chunked_cdist_argmin(q, far), 1),
             # valid rows of both sets, the bias or tsq of every target, d2 and
             # idx of every query
             bound=bound_ms(4 * d * (nq + nt) + 4 * t.shape[0] + 8 * q.shape[0], work),
             shape=f"{q.shape[0]} x {t.shape[0]}, d {d}",
         )
+        if pass_qmask:
+            mask_bytes = call_qmask.contiguous()
+            r["launch_ms"] = cuda_ms(lambda: tnn.NN_TILED_SMALLD.launch(
+                dev, q.data_ptr(), t.data_ptr(), mask_bytes.data_ptr(), tmask.data_ptr(),
+                d2k.data_ptr(), ik.data_ptr(), q.shape[0], t.shape[0]), reps)
+        launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
         log(f"kernel {label}: {q.shape[0]} x {t.shape[0]} x {d}: picks equal {agree:.6f}, "
-            f"max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+            f"max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms{launch}, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
         return r
 
     a, b = data["A"], data["B"]
     # Kernel 4: donor normals of path A (every full-resolution target point
     # against the downsampled target), and the downsampled ICP search of path B.
     results["nn_tiled_smalld"] = tiled_case(
-        "nn_tiled_smalld (A donor normals)", a["tgt"].points, a["td"].points, a["td"].mask,
-        a["tgt"].mask, 10, None)
+        "nn_tiled_smalld (A donor normals)" + parent_note("nn_tiled_smalld"), a["tgt"].points,
+        a["td"].points, a["td"].mask, a["tgt"].mask, 10, None)
     moved = se3.apply(b["mid"], b["sd"].points).contiguous()
-    tiled_case("nn_tiled_smalld (B downsampled ICP)", moved, b["td"].points, b["td"].mask,
-               b["sd"].mask, 10, None)
+    results["nn_tiled_smalld_8192"] = tiled_case(
+        "nn_tiled_smalld (B downsampled ICP)" + parent_note("nn_tiled_smalld_8192"), moved,
+        b["td"].points, b["td"].mask, b["sd"].mask, 20, None, pass_qmask=True)
     # Kernel 5: the FPFH searches of path B's mutual filter.
     results["nn_tiled_wide"] = tiled_case(
         "nn_tiled_wide (B FPFH)", b["sd"].features, b["td"].features, b["td"].mask,
@@ -1088,7 +1176,8 @@ def large_phases(dev, results: dict) -> dict:
                        (7.0 * entries, PEAK_FP32_OPS)),
         shape=f"{q.shape[0]} x {tgt.points.shape[0]}, {table.shape[0]} blocks x w {table.shape[1]}",
     )
-    log(f"kernel nn_blocksparse (A first full-res ICP search): {q.shape[0]} x {tgt.points.shape[0]}, "
+    log(f"kernel nn_blocksparse (A first full-res ICP search){parent_note('nn_blocksparse')}: "
+        f"{q.shape[0]} x {tgt.points.shape[0]}, "
         f"{table.shape[0]} query blocks x w {table.shape[1]}, {entries:.4g} valid entries: "
         f"picks equal {agree:.6f}, max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms, "
         f"plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")

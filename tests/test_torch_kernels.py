@@ -545,11 +545,12 @@ def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual):
 @pytest.mark.gpu
 def test_nn_tiled_smalld_kernel_matches_plain(cuda_device):
     """Same rounding order as the plain version: bit for bit, at a query
-    count that takes the 4-queries-a-thread launch and one that does not."""
+    count that takes the one-block-a-tile launch (300,000) and one that
+    splits the targets over a cluster (700)."""
     rng = np.random.default_rng(3)
     t = torch.tensor(rng.normal(size=(5000, 3)), dtype=torch.float32, device=cuda_device)
     tm = torch.tensor(rng.random(5000) > 0.3, device=cuda_device)
-    for nq in (700, 140_000):
+    for nq in (700, 300_000):
         q = torch.tensor(rng.normal(size=(nq, 3)), dtype=torch.float32, device=cuda_device)
         before = KERNELS["nn_tiled_smalld"].launches
         d2k, idxk = tnn.nn_search_tiled(q, t, None, tm)
@@ -557,6 +558,73 @@ def test_nn_tiled_smalld_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         assert KERNELS["nn_tiled_smalld"].launches == before + 1
         assert torch.equal(idxk, idxp) and torch.equal(d2k, d2p)
+
+
+def _tiled_case(case, rng):
+    """(q [M, 3], t [N, 3], query mask [M] or None, target mask [N] or None)
+    for kernel 4: path B's downsampled ICP (8192^2, the valid prefix of
+    each padded cloud), A's donor normals (1,000,448 x 1024, every query
+    valid), query and target counts that are no multiple of any tile or
+    slice, no valid target at all, an integer grid full of exact ties
+    (duplicated targets, masked twins), and masks that are strided views."""
+    M, N = 8192, 8192
+    if case == "donor":
+        M, N = 1_000_448, 1024
+    elif case == "ragged":
+        M, N = 8192 + 37, 3001
+    q = rng.normal(size=(M, 3))
+    t = rng.normal(size=(N, 3))
+    qm = np.zeros(M, bool)
+    qm[:6750] = True
+    tm = np.zeros(N, bool)
+    tm[:6891] = True
+    if case == "donor":
+        qm, tm = None, rng.random(N) > 0.25
+    elif case == "ragged":
+        qm, tm = rng.random(M) > 0.2, rng.random(N) > 0.3
+    elif case == "no_valid":
+        tm[:] = False
+    elif case == "grid_ties":
+        q = rng.integers(-3, 4, size=(M, 3)).astype(np.float64)
+        t = rng.integers(-3, 4, size=(N, 3)).astype(np.float64)
+        t[5000:5400] = t[:400]
+        tm[:200] = False
+    elif case == "strided":
+        qm = np.arange(M) % 3 != 1
+        tm = rng.random(N) > 0.3
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    return f32(q), f32(t), None if qm is None else torch.tensor(qm), torch.tensor(tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["b_shape", "donor", "ragged", "no_valid", "grid_ties",
+                                  "strided"])
+def test_nn_tiled_smalld_kernel_query_mask_cases_exact(cuda_device, case):
+    """Kernel 4 with its query mask: on valid query rows bit for bit the
+    plain version's picks and distances; masked rows idx 0 and d2 = BIG;
+    one launch.  "no_valid" runs the biased loop of every query; "strided"
+    passes both masks as strided views at an odd byte offset."""
+    q, t, qm, tm = (None if x is None else x.to(cuda_device)
+                    for x in _tiled_case(case, np.random.default_rng(20)))
+    if case == "strided":
+        wide = torch.zeros((2, q.shape[0] + 3), dtype=torch.bool, device=cuda_device)
+        wide[1, 3:] = qm
+        qm = wide[1, 3:]
+        wide_t = torch.zeros((2, t.shape[0] * 2 + 1), dtype=torch.bool, device=cuda_device)
+        wide_t[1, 1::2] = tm
+        tm = wide_t[1, 1::2]
+        assert not tm.is_contiguous() and qm.data_ptr() % 16
+    before = KERNELS["nn_tiled_smalld"].launches
+    d2k, idxk = tnn.nn_search_tiled(q, t, qm, tm)
+    d2p, idxp = tnn.nn_search_tiled_plain(q, t, qm, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["nn_tiled_smalld"].launches == before + 1
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda_device) if qm is None else qm
+    assert torch.equal(idxk[valid], idxp[valid])
+    assert torch.equal(d2k[valid], d2p[valid])
+    assert (idxk[~valid] == 0).all() and (d2k[~valid] == tnn.BIG).all()
+    if case == "no_valid":
+        assert (idxk[valid] == 0).all() and (d2k[valid] == tnn.BIG).all()
 
 
 @pytest.mark.gpu
@@ -585,26 +653,62 @@ def test_nn_tiled_wide_kernel_matches_plain(cuda_device):
     assert tm[idxk.long()].all()
 
 
-@pytest.mark.gpu
-def test_nn_blocksparse_kernel_matches_plain(cuda_device):
-    """Same rounding order as the plain version: bit for bit, sentinel rows
-    included, on KD-sorted clouds with their candidate table."""
+def _sparse_pair(block, device, n_tgt=30000, n_qry=29000):
+    """KD-sorted arch clouds padded to the block (30,000 and 29,000 points:
+    no block size divides them, so each last block is partly padding)."""
     from tpu3dm_torch.io.synthetic import dental_arch_cloud
 
-    block = 256
-    tgt = dental_arch_cloud(30000, seed=0).astype(np.float32)
-    qry = dental_arch_cloud(29000, seed=1).astype(np.float32) + 0.005
+    tgt = dental_arch_cloud(n_tgt, seed=0).astype(np.float32)
+    qry = dental_arch_cloud(n_qry, seed=1).astype(np.float32) + 0.005
     tp = torch.tensor(nn_sparse.pad_sorted(tgt[nn_sparse.kd_perm(tgt, block)], block),
-                      device=cuda_device)
+                      device=device)
     qp = torch.tensor(nn_sparse.pad_sorted(qry[nn_sparse.kd_perm(qry, block)], block),
-                      device=cuda_device)
-    table, _ = nn_sparse.candidate_blocks(qp, tp, block, 8)
+                      device=device)
+    return qp, tp
+
+
+def _blocksparse_exact(qp, tp, table, block):
     before = KERNELS["nn_blocksparse"].launches
     d2k, idxk = nn_sparse.nn_search_table(qp, tp, table, block=block)
     d2p, idxp = nn_sparse.nn_search_table_plain(qp, tp, table, block=block)
     torch.cuda.synchronize()
     assert KERNELS["nn_blocksparse"].launches == before + 1
     assert torch.equal(idxk, idxp) and torch.equal(d2k, d2p)
+    return idxk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 8])
+@pytest.mark.parametrize("block", [256, 512, 1024, 2048])
+def test_nn_blocksparse_kernel_matches_plain(cuda_device, block, w):
+    """Same rounding order as the plain version: bit for bit, sentinel rows
+    included, on KD-sorted clouds with their candidate table, at every
+    block size the large path may take and at one and eight visits."""
+    qp, tp = _sparse_pair(block, cuda_device)
+    assert qp.shape[0] > 29000 and tp.shape[0] > 30000  # padded last blocks
+    table, _ = nn_sparse.candidate_blocks(qp, tp, block, w)
+    _blocksparse_exact(qp, tp, table, block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [256, 512])
+def test_nn_blocksparse_kernel_ties_across_rows_and_visits(cuda_device, block):
+    """An integer grid with duplicated points: target blocks 0 and 1 hold
+    the same rows, and every query block visits block 1 first and block 0
+    second.  Exact ties within a block, across blocks and across visits go
+    to the first row of the earliest visit, as in the plain version, so no
+    pick lands in block 0."""
+    rng = np.random.default_rng(block)
+    ntb, nqb, w = 12, 9, 8
+    t = rng.integers(-2, 3, size=(ntb * block, 3)).astype(np.float32)
+    t[:block] = t[block:2 * block]
+    q = rng.integers(-2, 3, size=(nqb * block, 3)).astype(np.float32)
+    table = rng.integers(2, ntb, size=(nqb, w))
+    table[:, 0], table[:, 1] = 1, 0
+    idx = _blocksparse_exact(torch.tensor(q, device=cuda_device),
+                             torch.tensor(t, device=cuda_device),
+                             torch.tensor(table, dtype=torch.int32, device=cuda_device), block)
+    assert (idx >= block).all()
 
 
 @pytest.mark.gpu

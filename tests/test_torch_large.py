@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpu3dm.native
 from tpu3dm.core.cloud import PointCloud as JCloud
 from tpu3dm.core.cloud import from_numpy as j_from_numpy
 from tpu3dm.core.config import PipelineConfig as JConfig
@@ -45,6 +46,16 @@ from tpu3dm_torch.registration import ransac as pransac
 
 VOXEL = 0.3
 JCFG, PCFG = JConfig.with_voxel_size(VOXEL), PConfig.with_voxel_size(VOXEL)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_tier():
+    """The JAX native tier loaded, after any build race at collection (see
+    tests/test_torch_host.py:native_tier)."""
+    if not tpu3dm.native.available():
+        tpu3dm.native._tried = False
+        tpu3dm.native._lib = None
+        tpu3dm.native.lib()
 
 
 def _t(a):

@@ -24,6 +24,16 @@ from tpu3dm_torch.ops import nn as pnn
 from tpu3dm_torch.ops import nn_sparse as psp
 
 
+@pytest.fixture(scope="module", autouse=True)
+def native_tier():
+    """The JAX native tier loaded, after any build race at collection (see
+    tests/test_torch_host.py:native_tier)."""
+    if not tpu3dm.native.available():
+        tpu3dm.native._tried = False
+        tpu3dm.native._lib = None
+        tpu3dm.native.lib()
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -56,6 +66,42 @@ def test_tiled_plain_matches_pallas_interpret(d):
     else:
         np.testing.assert_allclose(dp.numpy(), np.asarray(dj), rtol=0, atol=2e-5)
     assert tm[ip.numpy()].all()
+
+
+def _grid_query_mask(case, rng, n):
+    """A query mask of the kind each caller passes: the valid prefix of a
+    padded cloud (the downsampled ICP and evaluation), every third row, a
+    random ~80%."""
+    if case == "prefix":
+        m = np.zeros(n, bool)
+        m[: n * 5 // 6] = True
+        return m
+    if case == "strided":
+        return np.arange(n) % 3 != 1
+    return rng.random(n) > 0.2
+
+
+@pytest.mark.parametrize("case", ["prefix", "strided", "random"])
+def test_tiled_plain_with_query_mask_matches_pallas_on_integer_grid(case):
+    """d = 3 on an integer grid, where every distance is exact in both
+    packages and ties abound (duplicated targets, masked twins): on the
+    valid query rows the plain version's picks and distances equal the TPU
+    kernel's in interpret mode exactly.  JAX never reads the query mask; the
+    port's plain version computes masked rows too, and the d = 3 kernel
+    skips them (idx 0, d2 = BIG: held on the card in test_torch_kernels.py)."""
+    rng = np.random.default_rng({"prefix": 1, "strided": 2, "random": 3}[case])
+    q = rng.integers(-3, 4, size=(1500, 3)).astype(np.float32)
+    t = rng.integers(-3, 4, size=(2600, 3)).astype(np.float32)
+    t[2100:2300] = t[:200]
+    tm = rng.random(2600) > 0.25
+    tm[:100] = False  # the first copy of some duplicated targets is masked
+    qm = _grid_query_mask(case, rng, 1500)
+    dj, ij = jnn.nn_search_pallas(jnp.asarray(q), jnp.asarray(t), jnp.asarray(qm),
+                                  jnp.asarray(tm), tile_t=512, interpret=True)
+    dp, ip = pnn.nn_search_tiled(_t(q), _t(t), _t(qm), _t(tm))
+    np.testing.assert_array_equal(ip.numpy()[qm], np.asarray(ij)[qm])
+    np.testing.assert_array_equal(dp.numpy()[qm], np.asarray(dj)[qm])
+    assert tm[ip.numpy()[qm]].all()
 
 
 @pytest.mark.parametrize("d", [3, 33])

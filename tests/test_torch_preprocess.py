@@ -7,6 +7,8 @@ IDENTICAL kNN slots (tight tolerances), and ``preprocess_points`` end to end
 (a tolerance for the near-ties).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +18,12 @@ from tpu3dm.core.config import PipelineConfig
 from tpu3dm.io.synthetic import make_benchmark_pair
 from tpu3dm.ops.eigh3 import smallest_eigvec_sym3 as j_eig
 from tpu3dm.ops.topk import nn_topk as j_topk
+from tpu3dm.core.cloud import PointCloud as JPointCloud
 from tpu3dm.preprocess.fpfh import fpfh_from_knn as j_fpfh
+from tpu3dm.preprocess.normals import estimate_normals as j_estimate
+from tpu3dm.preprocess.normals import estimate_normals_capped as j_estimate_capped
 from tpu3dm.preprocess.normals import normals_from_knn as j_normals
+from tpu3dm.preprocess.normals import radius_covariance_stats as j_stats
 from tpu3dm.preprocess.pipeline import preprocess_points as j_preprocess
 from tpu3dm.preprocess.voxel import voxel_downsample_host as j_voxel
 from tpu3dm_torch.core.cloud import from_reference_arrays
@@ -25,7 +31,11 @@ from tpu3dm_torch.io import synthetic as psyn
 from tpu3dm_torch.ops.eigh3 import smallest_eigvec_sym3 as p_eig
 from tpu3dm_torch.ops.topk import nn_topk as p_topk
 from tpu3dm_torch.preprocess.fpfh import fpfh_from_knn as p_fpfh
+from tpu3dm_torch.preprocess import normals as p_normals_mod
+from tpu3dm_torch.preprocess.normals import estimate_normals as p_estimate
+from tpu3dm_torch.preprocess.normals import estimate_normals_capped as p_estimate_capped
 from tpu3dm_torch.preprocess.normals import normals_from_knn as p_normals
+from tpu3dm_torch.preprocess.normals import radius_covariance_stats as p_stats
 from tpu3dm_torch.preprocess.pipeline import preprocess_points as p_preprocess
 from tpu3dm_torch.preprocess.voxel import voxel_downsample_host as p_voxel
 
@@ -169,3 +179,125 @@ def test_preprocess_points_matches_jax():
     ip, mp = (np.asarray(x) for x in nn_mutual_mask(
         jnp.asarray(fp), jnp.asarray(tpt.features.numpy()), sj.mask, tj.mask))
     assert (mj & mp & (ij == ip)).sum() >= 0.75 * mj.sum()
+
+
+# ---------------------------------------------------------------------------
+# Full-resolution normals (estimate_normals / estimate_normals_capped)
+# ---------------------------------------------------------------------------
+#
+# Both packages expand d2 as |q|^2 + |t|^2 - 2 q.t in fp32 and sum the
+# moments through matmuls in their own orders, so a point on the radius can
+# fall in or out, and the covariance E[p p^T] - mean mean^T cancels in
+# fp32.  Tolerance: |n_port . n_jax| > 0.9999 on >= 99% of valid rows;
+# a positive dot on every valid row whose normal is more than ~6 deg from
+# perpendicular to the outward direction (|n_jax . u| > 0.1, u the unit
+# vector from the centroid), since both orient outward; masked rows exactly
+# 0.  Nearer perpendicular the outward test is decided by the last bits: on
+# the far arch with the 30-neighbour cap one row's two normals, a few
+# degrees apart and both within a few degrees of perpendicular to u, point
+# opposite ways.
+# "Far" below is a shift of ~25 units: there |p|^2 ~ 600 and the moments
+# keep ~4 digits; past ~30 units the cancellation leaves so little that a
+# few normals of either package flip (JAX against itself at the origin too).
+FAR = np.array([20.0, -14.0, 8.0])
+
+
+def _assert_normals_agree(n_port, n_jax, points, mask):
+    dots = np.sum(n_port * n_jax, axis=1)
+    assert (np.abs(dots[mask]) > 0.9999).mean() >= 0.99
+    u = points - points[mask].mean(0)
+    u /= np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-12)
+    decided = mask & (np.abs(np.sum(n_jax * u, axis=1)) > 0.1)
+    assert decided.mean() >= 0.9 * mask.mean()
+    assert dots[decided].min() > 0.0
+    assert np.all(n_port[~mask] == 0) and np.all(n_jax[~mask] == 0)
+
+
+def _padded_arch(n, seed, masked_every=17):
+    """An n-point arch in a capacity of n + 200 rows, every masked_every-th
+    row masked as well as the padding."""
+    sp, _, _ = make_benchmark_pair(n, seed=seed, sigma=0.01)
+    pts = np.zeros((n + 200, 3), np.float32)
+    pts[:n] = sp
+    mask = np.zeros(n + 200, bool)
+    mask[:n] = True
+    mask[::masked_every] = False
+    return pts, mask
+
+
+@pytest.mark.parametrize("n", [4000, 9000])  # 9000: two query blocks of 8192
+def test_radius_covariance_stats_match_jax(n):
+    """Counts equal on >= 99.9% of valid rows and never more than 1 apart (a
+    neighbour on the radius); where equal, sum and sumsq within 1e-5 of the
+    row's scale (count x max |p|, count x max |p|^2); masked rows' stats
+    are those of JAX too (both count a masked query's sentinel row as no
+    neighbour of anything)."""
+    pts, mask = _padded_arch(n, seed=3)
+    r = CFG.normal_radius
+    cj, sj, ssj = (np.asarray(x) for x in j_stats(jnp.asarray(pts), jnp.asarray(mask), r))
+    cp, sp, ssp = (x.numpy() for x in p_stats(_t(pts), _t(mask), r))
+    assert (cp[mask] == cj[mask]).mean() >= 0.999
+    assert np.abs(cp - cj).max() <= 1.0
+    eq = mask & (cp == cj)
+    pmax = np.abs(pts[mask]).max()
+    assert np.all(np.abs(sp - sj)[eq] <= 1e-5 * cj[eq, None] * pmax)
+    assert np.all(np.abs(ssp - ssj)[eq] <= 1e-5 * cj[eq, None] * pmax ** 2)
+    assert np.all(cp[~mask] == cj[~mask])
+
+
+def test_radius_covariance_stats_query_blocks_change_nothing(monkeypatch):
+    """Query blocks of 8192 or of 1000 rows: the same moments bit for bit
+    (each query row's sums run over the same target blocks in order)."""
+    pts, mask = _padded_arch(3000, seed=4)
+    one = p_stats(_t(pts), _t(mask), CFG.normal_radius)
+    monkeypatch.setattr(p_normals_mod, "QUERY_CHUNK", 1000)
+    many = p_stats(_t(pts), _t(mask), CFG.normal_radius)
+    assert all(torch.equal(a, b) for a, b in zip(one, many))
+
+
+def _clouds(pts, mask):
+    """The same padded cloud in both packages (strided mask included)."""
+    arrays = {"points": pts, "mask": mask, "normals": np.zeros_like(pts),
+              "features": np.zeros((len(mask), 0), np.float32)}
+    jc = JPointCloud(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    return jc, from_reference_arrays(arrays, device="cpu")
+
+
+@pytest.mark.parametrize("n", [4000, 9000])  # 9000: two query blocks of 8192
+def test_estimate_normals_match_jax(n):
+    pts, mask = _padded_arch(n, seed=5)
+    jc, pc = _clouds(pts, mask)
+    nj = np.asarray(j_estimate(jc, CFG.normal_radius).normals)
+    npn = p_estimate(pc, CFG.normal_radius).normals.numpy()
+    _assert_normals_agree(npn, nj, pts, mask)
+    assert np.abs(np.linalg.norm(npn[mask], axis=1) - 1).max() < 1e-5
+
+
+@pytest.mark.parametrize("max_nn", [10, 30])
+def test_estimate_normals_capped_matches_jax(max_nn):
+    pts, mask = _padded_arch(4000, seed=6)
+    jc, pc = _clouds(pts, mask)
+    nj = np.asarray(j_estimate_capped(jc, CFG.normal_radius, max_nn=max_nn).normals)
+    npn = p_estimate_capped(pc, CFG.normal_radius, max_nn=max_nn).normals.numpy()
+    _assert_normals_agree(npn, nj, pts, mask)
+
+
+@pytest.mark.parametrize("shift", ["origin", "far"])
+@pytest.mark.parametrize("full_max_nn", [0, 30])
+def test_preprocess_points_full_normals_match_jax(full_max_nn, shift):
+    """``full`` carries normals wherever JAX's does: all radius neighbours
+    (full_normal_max_nn = 0, the default) or the nearest 30, on a
+    4000-point arch at the origin and ~25 units away; ``down`` is untouched
+    by the choice."""
+    cfg = dataclasses.replace(CFG, full_normal_max_nn=full_max_nn)
+    sp, _, _ = make_benchmark_pair(4000, seed=2, sigma=0.01)
+    if shift == "far":
+        sp = sp + FAR
+    fj = j_preprocess(sp, cfg).full
+    out = p_preprocess(sp, cfg, device="cpu")
+    m = np.asarray(fj.mask)
+    np.testing.assert_array_equal(out.full.mask.numpy(), m)
+    np.testing.assert_array_equal(out.full.points.numpy(), np.asarray(fj.points))
+    _assert_normals_agree(out.full.normals.numpy(), np.asarray(fj.normals),
+                          np.asarray(fj.points), m)
+    assert np.abs(np.linalg.norm(out.full.normals.numpy()[m], axis=1) - 1).max() < 1e-5

@@ -72,32 +72,9 @@
 
 namespace {
 
-constexpr float kBig = 1e30f;  // the plain version's bias of a masked target (ops/nn.py:BIG)
 constexpr int kQueriesPerBlock = 1024;
 constexpr int kQueriesPerThread = 8;  // R
 constexpr int kTile = 2048;           // targets staged per pass: 32 KB of (x, y, z, index)
-
-struct Best {
-  float d2;
-  int j;
-};
-
-// The biased d2 over every target of the lane, the plain version's, from global
-// memory, first index on ties.  Mask null: every target valid.
-__device__ __noinline__ Best biased_search(float qx, float qy, float qz,
-                                           const float* __restrict__ lt,
-                                           const unsigned char* __restrict__ lm, int N) {
-  Best b{CUDART_INF_F, 0};
-  for (int j = 0; j < N; ++j) {
-    const float bias = (lm == nullptr || lm[j]) ? 0.f : kBig;
-    const float acc = biased_sq_dist3(qx, qy, qz, lt[3 * j], lt[3 * j + 1], lt[3 * j + 2], bias);
-    if (acc < b.d2) {  // strict: ties keep the smaller index
-      b.d2 = acc;
-      b.j = j;
-    }
-  }
-  return b;
-}
 
 constexpr int kThreads = kQueriesPerBlock / kQueriesPerThread;
 

@@ -7,15 +7,17 @@
 // the order of the plain version (tpu3dm_torch/ops/nn.py:nn_search_dense), so
 // kernels and plain version agree bit for bit.
 //
-// nn_tiled.cu stages its targets in shared memory as four scalars a row
-// (x, y, z, bias) and passes them here one by one: on the H100 that ran
-// faster than float4 rows, whose 128-bit broadcast loads also made the
-// one-query-a-thread lane_nn.cu spill.  lane_nn.cu now stages only the
-// valid targets and calls sq_dist3.
+// Both kernels stage only the valid targets, compacted in index order, and
+// call sq_dist3 on them; a query whose best valid d2 is not below BIG runs
+// biased_search over every target instead (see lane_nn.cu), so each equals
+// the plain version bit for bit in every case.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+constexpr float kBig = 1e30f;  // the plain version's bias of a masked target (ops/nn.py:BIG)
 
 __device__ __forceinline__ float biased_sq_dist3(float qx, float qy, float qz, float tx, float ty,
                                                  float tz, float bias) {
@@ -37,4 +39,26 @@ __device__ __forceinline__ float sq_dist3(float qx, float qy, float qz, float tx
   const float dy = __fsub_rn(qy, ty);
   const float dz = __fsub_rn(qz, tz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+struct Best {
+  float d2;
+  int j;
+};
+
+// The biased d2 over every target t [N, 3] (mask null: every target
+// valid), the plain version's, from global memory, first index on ties.
+__device__ __noinline__ Best biased_search(float qx, float qy, float qz,
+                                           const float* __restrict__ t,
+                                           const unsigned char* __restrict__ mask, int N) {
+  Best b{CUDART_INF_F, 0};
+  for (int j = 0; j < N; ++j) {
+    const float bias = (mask == nullptr || mask[j]) ? 0.f : kBig;
+    const float acc = biased_sq_dist3(qx, qy, qz, t[3 * j], t[3 * j + 1], t[3 * j + 2], bias);
+    if (acc < b.d2) {  // strict: ties keep the smaller index
+      b.d2 = acc;
+      b.j = j;
+    }
+  }
+  return b;
 }

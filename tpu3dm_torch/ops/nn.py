@@ -29,7 +29,7 @@ SMALL_D_MAX = 8
 DENSE_MAX_ENTRIES = 1 << 24
 
 NN_TILED_SMALLD = Kernel(
-    "nn_tiled_smalld", "nn_tiled.cu", "t3t_nn_tiled_smalld", [PTR] * 5 + [INT] * 2,
+    "nn_tiled_smalld", "nn_tiled.cu", "t3t_nn_tiled_smalld", [PTR] * 6 + [INT] * 2,
 )
 NN_TILED_WIDE = Kernel(
     "nn_tiled_wide", "nn_tiled.cu", "t3t_nn_tiled_wide", [PTR] * 5 + [INT] * 3,
@@ -94,6 +94,8 @@ def nn_search_tiled_plain(query, target, query_mask=None, target_mask=None):
     true squared distance; for d >= 8, min_j (tsq_j - 2 q.t_j), then + |q|^2
     and max(., 0).  A running minimum with the first index over target tiles
     in order is the first argmin of the whole row, which torch.argmin gives.
+    Masked queries are computed like valid ones (their results are
+    unspecified, as in JAX).
     """
     del query_mask
     d2s, idxs = [], []
@@ -102,6 +104,23 @@ def nn_search_tiled_plain(query, target, query_mask=None, target_mask=None):
         d2s.append(d2)
         idxs.append(idx)
     return torch.cat(d2s), torch.cat(idxs)
+
+
+def _byte_mask(where: str, mask: torch.Tensor | None, shape: tuple[int, ...],
+               dev: torch.device) -> torch.Tensor | None:
+    """A bool mask of ``shape`` for a kernel that reads it a byte at a time
+    (any offset will do), made contiguous; None stays None (every row valid)."""
+    if mask is None:
+        return None
+    check_dtype(where, torch.bool, mask=mask)
+    if mask.shape != shape or mask.device != dev:
+        raise ValueError(f"{where}: mask {tuple(mask.shape)} on {mask.device} does not match "
+                         f"{shape} rows on {dev}")
+    return mask.contiguous()
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def nn_search_tiled(
@@ -116,18 +135,19 @@ def nn_search_tiled(
     Args:
       query: [Nq, d] float32; target: [Nt, d] float32.  On CUDA d = 3 or
         8 <= d <= 64 (the kernels' widths); other widths raise there.
-      query_mask: ignored (masked queries get arbitrary results, as in JAX).
+      query_mask: [Nq] bool or None.  Masked queries get unspecified
+        results, as in JAX: the plain version and the d >= 8 kernel compute
+        them, the d = 3 kernel skips them (idx 0, d2 = BIG).
       target_mask: [Nt] bool or None; masked targets never win.
 
     Returns (d2 [Nq] float32, idx [Nq] int32), ties to the smaller index.
     """
-    del query_mask
     where = "nn_search_tiled"
     if query.ndim != 2 or target.ndim != 2 or query.shape[1] != target.shape[1]:
         raise ValueError(f"{where}: expected [Nq, d] and [Nt, d], got "
                          f"{tuple(query.shape)} and {tuple(target.shape)}")
-    if dispatch(where, query, target, target_mask) == "cpu":
-        return nn_search_tiled_plain(query, target, None, target_mask)
+    if dispatch(where, query, target, query_mask, target_mask) == "cpu":
+        return nn_search_tiled_plain(query, target, query_mask, target_mask)
     nq, d = query.shape
     nt = target.shape[0]
     check_dtype(where, torch.float32, query=query, target=target)
@@ -137,13 +157,11 @@ def nn_search_tiled(
         if d != 3:
             raise NotImplementedError(f"{where}: below d = {SMALL_D_MAX} the kernel takes d = 3, "
                                       f"got {d}")
-        if target_mask is None:
-            bias = torch.zeros((nt,), dtype=torch.float32, device=query.device)
-        else:
-            bias = torch.where(target_mask, 0.0, BIG).to(torch.float32)
-        dev = check_cuda_tensors(where, 1, query=query, target=target, bias=bias, d2=out, idx=idx)
+        dev = check_cuda_tensors(where, 1, query=query, target=target, d2=out, idx=idx)
+        query_mask = _byte_mask(where, query_mask, (nq,), dev)
+        target_mask = _byte_mask(where, target_mask, (nt,), dev)
         NN_TILED_SMALLD.launch(
-            dev, query.data_ptr(), target.data_ptr(), bias.data_ptr(),
+            dev, query.data_ptr(), target.data_ptr(), _ptr(query_mask), _ptr(target_mask),
             out.data_ptr(), idx.data_ptr(), nq, nt,
         )
         return out, idx

@@ -26,6 +26,8 @@ from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype,
 from tpu3dm_torch.ops.nn import (
     SMALL_D_MAX,
     WIDE_MAX_D,
+    _byte_mask,
+    _ptr,
     _sq_norms,
     lane_slices,
     nn_mutual_mask,
@@ -53,23 +55,6 @@ def _check_batched(where: str, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.ndim != 3 or y.ndim != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
         raise ValueError(f"{where}: expected [B, M, d] and [B, N, d], got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
-
-
-def _lane_mask(where: str, mask: torch.Tensor | None, b: int, n: int,
-               dev: torch.device) -> torch.Tensor | None:
-    """A [b, n] bool mask for a kernel that reads it a byte at a time (any
-    offset will do), made contiguous; None stays None (every row valid)."""
-    if mask is None:
-        return None
-    check_dtype(where, torch.bool, mask=mask)
-    if mask.shape != (b, n) or mask.device != dev:
-        raise ValueError(f"{where}: mask {tuple(mask.shape)} on {mask.device} does not match "
-                         f"{b} lanes x {n} rows on {dev}")
-    return mask.contiguous()
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
 
 
 def _check_fpfh_rows(where: str, *rows: int) -> None:
@@ -124,7 +109,7 @@ def nn_search_lane(
             raise NotImplementedError(f"{where}: below d = {SMALL_D_MAX} the kernel takes d = 3, "
                                       f"got {d}")
         dev = check_cuda_tensors(where, b, query=query, target=target, d2=out, idx=idx)
-        target_mask = _lane_mask(where, target_mask, b, n, dev)
+        target_mask = _byte_mask(where, target_mask, (b, n), dev)
         LANE_NN.launch(
             dev, query.data_ptr(), target.data_ptr(), _ptr(target_mask),
             out.data_ptr(), idx.data_ptr(), b, m, n,
@@ -136,8 +121,8 @@ def nn_search_lane(
         _check_fpfh_rows(where, n)
     tsq = _sq_norms(target, target_mask)
     dev = check_cuda_tensors(where, b, query=query, target=target, tsq=tsq, part=out, idx=idx)
-    query_mask = _lane_mask(where, query_mask, b, m, dev)
-    target_mask = _lane_mask(where, target_mask, b, n, dev)
+    query_mask = _byte_mask(where, query_mask, (b, m), dev)
+    target_mask = _byte_mask(where, target_mask, (b, n), dev)
     LANE_NN_WIDE.launch(
         dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(), _ptr(query_mask),
         _ptr(target_mask), out.data_ptr(), idx.data_ptr(), b, m, n, d,
@@ -198,8 +183,8 @@ def nn_mutual_mask_lane(
     mutual = torch.empty((nl, na), dtype=torch.bool, device=a.device)
     check_dtype(where, torch.float32, a=a, b=b)
     dev = check_cuda_tensors(where, nl, a=a, b=b, asq=asq, bsq=bsq, idx=idx, mutual=mutual)
-    mask_a = _lane_mask(where, mask_a, nl, na, dev)
-    mask_b = _lane_mask(where, mask_b, nl, nb, dev)
+    mask_a = _byte_mask(where, mask_a, (nl, na), dev)
+    mask_b = _byte_mask(where, mask_b, (nl, nb), dev)
     LANE_MUTUAL.launch(
         dev, a.data_ptr(), b.data_ptr(), asq.data_ptr(), bsq.data_ptr(), _ptr(mask_a),
         _ptr(mask_b), idx.data_ptr(), mutual.data_ptr(), nl, na, nb,

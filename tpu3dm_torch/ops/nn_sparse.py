@@ -36,7 +36,7 @@ SPARSE_PAD = 1.0e6
 NN_BLOCKSPARSE = Kernel(
     "nn_blocksparse", "nn_blocksparse.cu", "t3t_nn_blocksparse", [PTR] * 5 + [INT] * 3,
 )
-MAX_BLOCK = 2048  # the kernel's queries per block
+MAX_BLOCK = 2048  # the largest block the card tests hold the kernel to
 
 
 def kd_perm(points: np.ndarray, block: int) -> np.ndarray:
@@ -166,7 +166,8 @@ def nn_search_table(
     if dispatch(where, query, target, table) == "cpu":
         return nn_search_table_plain(query, target, table, block=block)
     if block > MAX_BLOCK:
-        raise NotImplementedError(f"{where}: the kernel takes block <= {MAX_BLOCK}, got {block}")
+        raise NotImplementedError(f"{where}: the kernel is held to block <= {MAX_BLOCK}, "
+                                  f"got {block}")
     check_dtype(where, torch.float32, query=query, target=target)
     check_dtype(where, torch.int32, table=table)
     nq = query.shape[0]

@@ -2,9 +2,11 @@
 
 Host voxel downsample, then ``down_features``: ONE k = fpfh_max_nn top-k
 scan feeds both the normals (first normal_max_nn slots, re-masked by the
-normal radius) and the 33-D FPFH.  Full-resolution normals are skipped, as
-the JAX ``preprocess_points_batch(full_normals=False)`` does: the fused
-registration step reads only the downsampled cloud.
+normal radius) and the 33-D FPFH.  The full-resolution cloud gets its own
+normals at the normal radius, as JAX's ``preprocess_points`` gives them:
+every neighbour in the radius (``estimate_normals``) when
+``full_normal_max_nn`` is 0, else the nearest ``full_normal_max_nn``
+(``estimate_normals_capped``).
 """
 
 from __future__ import annotations
@@ -19,13 +21,17 @@ from tpu3dm_torch.core.cloud import PAD_SENTINEL, PointCloud, from_numpy
 from tpu3dm_torch.core.config import PreprocessConfig
 from tpu3dm_torch.ops.topk import nn_topk
 from tpu3dm_torch.preprocess.fpfh import fpfh_from_knn
-from tpu3dm_torch.preprocess.normals import normals_from_knn
+from tpu3dm_torch.preprocess.normals import (
+    estimate_normals,
+    estimate_normals_capped,
+    normals_from_knn,
+)
 from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
 
 
 @dataclasses.dataclass
 class ProcessedCloud:
-    """A cloud at two resolutions: ``full`` (points only) and ``down``
+    """A cloud at two resolutions: ``full`` (with normals) and ``down``
     (downsampled, with normals and FPFH features)."""
 
     full: PointCloud
@@ -81,7 +87,8 @@ def preprocess_points(
     *,
     device=None,
 ) -> ProcessedCloud:
-    """Voxel downsample on the host, then normals + FPFH on ``device``.
+    """Voxel downsample on the host, then the downsampled cloud's normals +
+    FPFH and the full cloud's normals on ``device``.
 
     ``device=None`` means CUDA, and raises when CUDA is absent.
     """
@@ -97,4 +104,9 @@ def preprocess_points(
         normal_max_nn=config.normal_max_nn,
         fpfh_max_nn=config.fpfh_max_nn,
     )
+    if config.full_normal_max_nn > 0:
+        full = estimate_normals_capped(full, config.normal_radius,
+                                       max_nn=config.full_normal_max_nn)
+    else:
+        full = estimate_normals(full, config.normal_radius)
     return ProcessedCloud(full=full, down=down, voxel_size=config.voxel_size)
