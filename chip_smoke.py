@@ -51,9 +51,11 @@ Phases (any failure exits non-zero and prints no ok line):
      correspondences, no bf16 rounding: the fp32 route, which paths A and B
      launch and the bf16 one never), the tiled 3-D search
      at 1,000,448 x 1024 (A's donor normals) and 8192 x 8192 (B's
-     downsampled ICP), the tiled 33-D search at 8192 x 8192 (B's FPFH), the
-     block-sparse search at 1,000,448 x 1,000,448 with the candidate table of
-     A's first full-resolution ICP iteration;
+     downsampled ICP, with its query mask), the tiled 33-D search at 8192 x
+     8192 (B's forward FPFH search, with its query mask), the block-sparse
+     search at 1,000,448 x 1,000,448 with the candidate table of A's first
+     full-resolution ICP iteration; the fp32 score and the two searches
+     with a query mask are also timed as the launch alone;
   9. path A at 40,000 points on the card and on the CPU (plain versions)
      with the same sample bits: rotation within 0.5 deg, translation 0.02;
  10. one JSON line of per-kernel numbers, a row per kernel and shape, each
@@ -113,7 +115,7 @@ ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score", "nn_tiled_smalld_8192":
 # Rows of the kernels redesigned last, and the time (ms) PERF.md section 6
 # gives the commit before the redesign, on an NVIDIA H100 80GB HBM3 at 700 W.
 # Printed beside the row's own time, never put into the kernels JSON line.
-PARENT_MS = {"nn_tiled_smalld": 0.5122, "nn_tiled_smalld_8192": 0.1463, "nn_blocksparse": 3.1971}
+PARENT_MS = {"nn_tiled_wide": 0.4062, "ransac_score_fp32_1lane": 0.4431, "ransac_score": 10.0308}
 # Launches of the fused step's counted call: the correspondence search, one
 # score chunk (approx_score: bf16), one 3-D search every ICP_SOLVES_PER_NN
 # iterations.
@@ -414,7 +416,7 @@ def main() -> int:
     asq, bsq = tnn._sq_norms(fa, sm), tnn._sq_norms(fb, tm)
     results["lane_mutual"]["launch_ms"] = cuda_ms(lambda: nn_lane.LANE_MUTUAL.launch(
         dev, fa.data_ptr(), fb.data_ptr(), asq.data_ptr(), bsq.data_ptr(), sm.data_ptr(),
-        tm.data_ptr(), idxk.data_ptr(), mutk.data_ptr(), b, na, nb), 5)
+        tm.data_ptr(), idxk.data_ptr(), mutk.data_ptr(), None, b, na, nb), 5)
     del idxk, mutk, idxp, mutp, far, asq, bsq
 
     # Kernel 7: the 33-D forward NN per lane (path C's correspondences), on
@@ -540,12 +542,13 @@ def main() -> int:
         return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
 
     nv = lane_counts(v).sum().item()
-    # Needed work: every hypothesis x the lane's valid correspondences, a bf16
-    # tensor-core product with fp32 accumulation (16 multiply-adds, 32 flops)
-    # and an fp32 epilogue of three instructions ((acc + c_n) + e_k, then the
-    # compare); bytes: H (bf16, 32 B a row), e and the counts in full, valid
-    # rows of F (bf16) and c, the mask.  The fp32 route's row does the same
-    # work on H and F read in fp32 (64 B a row).
+    # Needed work: every hypothesis x the lane's valid correspondences.  The
+    # bf16 route: a bf16 tensor-core product with fp32 accumulation (16
+    # multiply-adds, 32 flops) and an fp32 epilogue of three instructions
+    # ((acc + c_n) + e_k, then the compare).  The fp32 route: 19 fp32
+    # instructions (16 FMAs, the adds of c and e, the compare).  Bytes: H
+    # (32 B a row in bf16, 64 in fp32), e and the counts in full, valid rows
+    # of F and c, the mask.
     work = ((32.0 * k * nv, PEAK_BF16_FLOPS), (3.0 * k * nv, PEAK_FP32_OPS))
     library_ms = cuda_ms(score_library, 2)
     shape = f"{b} lanes x K {k} x N {nn_} ({nv:.0f} valid rows)"
@@ -562,13 +565,13 @@ def main() -> int:
         ms=cuda_ms(lambda: ransac_score.score_features(Hf, e, Ff, c, v, thr), 5),
         plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(Hf, e, Ff, c, v, thr), 2),
         library_ms=library_ms,
-        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * nn_, *work),
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * nn_, (19.0 * k * nv, PEAK_FP32_OPS)),
         shape=f"{shape}, fp32 H and F holding bf16 values",
     )
     r, rf = results["ransac_score_bf16"], results["ransac_score"]
     log(f"kernel ransac_score_bf16: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); the fp32 "
-        f"route on the same values in fp32 tensors: kernel {rf['ms']:.4f} ms, bound "
-        f"{rf['bound'][0]:.4f} ms ({rf['bound'][1]})")
+        f"route on the same values in fp32 tensors{parent_note('ransac_score')}: kernel "
+        f"{rf['ms']:.4f} ms, bound {rf['bound'][0]:.4f} ms ({rf['bound'][1]})")
     del H, e, F, c, v, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
     torch.cuda.empty_cache()
     for name, r in results.items():
@@ -953,7 +956,14 @@ def fp32_score_case(sd, td, rc) -> dict:
         bound=bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (19.0 * k * nv, PEAK_FP32_OPS)),
         shape=f"1 lane x K {k} x N {F.shape[1]} ({nv:.0f} valid rows), fp32 H and F",
     )
-    log(f"kernel ransac_score fp32 (B first RANSAC chunk): kernel {r['ms']:.4f} ms, plain "
+    # The launch alone, without the wrapper's Python (checks, the counts'
+    # allocation, the stream).
+    out = torch.empty_like(ck)
+    r["launch_ms"] = cuda_ms(lambda: ransac_score.RANSAC_SCORE.launch(
+        H.device, H.data_ptr(), e.data_ptr(), F.data_ptr(), c.data_ptr(), v.data_ptr(), thr,
+        out.data_ptr(), 1, k, F.shape[1]), 10)
+    log(f"kernel ransac_score fp32 (B first RANSAC chunk){parent_note('ransac_score_fp32_1lane')}: "
+        f"kernel {r['ms']:.4f} ms (the launch alone {r['launch_ms']:.4f} ms), plain "
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
         f"({r['bound'][1]})")
     return r
@@ -1121,11 +1131,18 @@ def large_phases(dev, results: dict) -> dict:
             bound=bound_ms(4 * d * (nq + nt) + 4 * t.shape[0] + 8 * q.shape[0], work),
             shape=f"{q.shape[0]} x {t.shape[0]}, d {d}",
         )
-        if pass_qmask:
+        if pass_qmask:  # the launch alone, without the wrapper's Python and norms
             mask_bytes = call_qmask.contiguous()
-            r["launch_ms"] = cuda_ms(lambda: tnn.NN_TILED_SMALLD.launch(
-                dev, q.data_ptr(), t.data_ptr(), mask_bytes.data_ptr(), tmask.data_ptr(),
-                d2k.data_ptr(), ik.data_ptr(), q.shape[0], t.shape[0]), reps)
+            if d < 8:
+                launch_only = lambda: tnn.NN_TILED_SMALLD.launch(  # noqa: E731
+                    dev, q.data_ptr(), t.data_ptr(), mask_bytes.data_ptr(), tmask.data_ptr(),
+                    d2k.data_ptr(), ik.data_ptr(), q.shape[0], t.shape[0])
+            else:
+                tsq = tnn._sq_norms(t, tmask)
+                launch_only = lambda: tnn.NN_TILED_WIDE.launch(  # noqa: E731
+                    dev, q.data_ptr(), t.data_ptr(), tsq.data_ptr(), mask_bytes.data_ptr(),
+                    tmask.data_ptr(), d2k.data_ptr(), ik.data_ptr(), q.shape[0], t.shape[0], d)
+            r["launch_ms"] = cuda_ms(launch_only, reps)
         launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
         log(f"kernel {label}: {q.shape[0]} x {t.shape[0]} x {d}: picks equal {agree:.6f}, "
             f"max |d2| err {err:.3g}; kernel {r['ms']:.4f} ms{launch}, plain "
@@ -1143,10 +1160,11 @@ def large_phases(dev, results: dict) -> dict:
     results["nn_tiled_smalld_8192"] = tiled_case(
         "nn_tiled_smalld (B downsampled ICP)" + parent_note("nn_tiled_smalld_8192"), moved,
         b["td"].points, b["td"].mask, b["sd"].mask, 20, None, pass_qmask=True)
-    # Kernel 5: the FPFH searches of path B's mutual filter.
+    # Kernel 5: the forward FPFH search of path B's mutual filter, with the
+    # source mask as its query mask, as nn_mutual passes it.
     results["nn_tiled_wide"] = tiled_case(
-        "nn_tiled_wide (B FPFH)", b["sd"].features, b["td"].features, b["td"].mask,
-        b["sd"].mask, 10, 2e-6)
+        "nn_tiled_wide (B FPFH)" + parent_note("nn_tiled_wide"), b["sd"].features,
+        b["td"].features, b["td"].mask, b["sd"].mask, 20, 2e-6, pass_qmask=True)
 
     # Kernel 6: the first full-resolution ICP search of path A.
     src, tgt = a["src"], a["tgt"]

@@ -417,17 +417,31 @@ def test_lane_nn_wide_fpfh_route_matches_kernel_5_per_lane(cuda_device):
 
 
 @pytest.mark.gpu
-def test_fpfh_lane_tile_takes_at_most_its_rows(cuda_device):
-    """The FPFH lane tile keeps a lane's row lists in shared memory: above
-    FPFH_MAX_ROWS rows a side both wrappers raise rather than launch."""
-    big = torch.zeros(1, nn_lane.FPFH_MAX_ROWS + 1, 33, device=cuda_device)
-    small = torch.zeros(1, 8, 33, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        nn_lane.nn_mutual_mask_lane(big, small)
-    with pytest.raises(NotImplementedError):
-        nn_lane.nn_mutual_mask_lane(small, big)
-    with pytest.raises(NotImplementedError):
-        nn_lane.nn_search_lane(small, big)
+def test_fpfh_lane_kernels_take_lanes_above_8192_rows(cuda_device):
+    """Kernels 2 and 7 at 8192 + 200 rows a lane side (kernel 2's lists then
+    go to a device-memory scratch, kernel 7 sweeps its targets in parts of
+    a block's list), with masks and a lane without a valid target, on an
+    integer grid: equal to the plain versions on every valid query row
+    (mutual on every row), one launch each."""
+    rng = np.random.default_rng(23)
+    B, n = 2, 8192 + 200
+    a = torch.tensor(rng.integers(0, 4, size=(B, n, 33)), dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.integers(0, 4, size=(B, n, 33)), dtype=torch.float32, device=cuda_device)
+    ma = torch.tensor(rng.random((B, n)) > 0.3, device=cuda_device)
+    mb = torch.tensor(rng.random((B, n)) > 0.3, device=cuda_device)
+    mb[1] = False
+    before = {k: KERNELS[k].launches for k in ("lane_mutual", "lane_nn_wide")}
+    idxk, mutk = nn_lane.nn_mutual_mask_lane(a, b, ma, mb)
+    d2k, jk = nn_lane.nn_search_lane(a, b, ma, mb)
+    torch.cuda.synchronize()
+    assert KERNELS["lane_mutual"].launches == before["lane_mutual"] + 1
+    assert KERNELS["lane_nn_wide"].launches == before["lane_nn_wide"] + 1
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(a, b, ma, mb)
+    assert torch.equal(idxk[ma], idxp[ma]) and torch.equal(mutk, mutp)
+    d2p, jp = nn_lane.nn_search_lane_plain(a, b, ma, mb)
+    assert torch.equal(jk[ma], jp[ma]) and torch.equal(d2k[ma], d2p[ma])
+    assert (jk[~ma] == 0).all() and (d2k[~ma] == tnn.BIG).all()
+    assert mutk[0].any() and (jk[1][ma[1]] == 0).all()
 
 
 @pytest.mark.gpu
@@ -651,6 +665,187 @@ def test_nn_tiled_wide_kernel_matches_plain(cuda_device):
     scale = (q * q).sum(1).max() + (t * t).sum(1).max()
     assert (d2k - d2p).abs().max() <= 1e-5 * scale
     assert tm[idxk.long()].all()
+
+
+def _wide_case(case, rng):
+    """(q [M, 33], t [N, 33], query mask [M] or None, target mask [N] or
+    None) on an integer grid for kernel 5 at d = 33, where every dot is
+    exact in any order, so the kernel equals the plain version bit for bit
+    and ties abound: path B's FPFH shape (8192^2, the valid prefix of each
+    padded cloud, so query tiles past the valid rows return at once and the
+    targets split over a cluster of 8), no query mask, every query valid,
+    random masks at counts no tile or share divides, no valid target, a
+    share longer than one block's list (300 queries: 8 shares of ~8,500
+    listed targets), twin targets within and across shares, and masks that
+    are strided views at an odd byte offset."""
+    M, N = 8192, 8192
+    if case in ("none", "all"):
+        M, N = 3000, 4100
+    elif case == "random":
+        M, N = 8192 + 37, 3001
+    elif case == "long":
+        M, N = 300, 70_000
+    q = rng.integers(0, 4, size=(M, 33)).astype(np.float32)
+    t = rng.integers(0, 4, size=(N, 33)).astype(np.float32)
+    qm = np.arange(M) < 6750
+    tm = np.arange(N) < 6891
+    if case == "none":
+        qm, tm = None, rng.random(N) > 0.1
+    elif case == "all":
+        qm, tm = np.ones(M, bool), rng.random(N) > 0.1
+    elif case in ("random", "strided"):
+        qm, tm = rng.random(M) > 0.3, rng.random(N) > 0.25
+    elif case == "no_valid":
+        tm[:] = False
+    elif case == "long":
+        qm, tm = rng.random(M) > 0.1, rng.random(N) > 0.03
+    elif case == "ties":  # shares of ~861 listed targets: 10, 11, 70 in the first, 5000 in the sixth
+        t[[11, 70, 5000]] = t[10]
+        q[0] = t[10]
+        q[1] = t[10]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    return f32(q), f32(t), None if qm is None else torch.tensor(qm), torch.tensor(tm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["b_shape", "none", "all", "random", "no_valid", "long", "ties",
+                                  "strided"])
+def test_nn_tiled_wide_fpfh_route_query_mask_cases_exact(cuda_device, case):
+    """Kernel 5 at d = 33 with its query mask: on valid query rows bit for
+    bit the plain version's picks and distances (the first index of a tie,
+    within a share and across shares); masked rows idx 0 and d2 = BIG; one
+    launch."""
+    q, t, qm, tm = (None if x is None else x.to(cuda_device)
+                    for x in _wide_case(case, np.random.default_rng(24)))
+    if case == "strided":
+        wide = torch.zeros((2, q.shape[0] + 3), dtype=torch.bool, device=cuda_device)
+        wide[1, 3:] = qm
+        qm = wide[1, 3:]
+        wide_t = torch.zeros((2, t.shape[0] * 2 + 1), dtype=torch.bool, device=cuda_device)
+        wide_t[1, 1::2] = tm
+        tm = wide_t[1, 1::2]
+        assert not tm.is_contiguous() and qm.data_ptr() % 16
+    before = KERNELS["nn_tiled_wide"].launches
+    d2k, idxk = tnn.nn_search_tiled(q, t, qm, tm)
+    d2p, idxp = tnn.nn_search_tiled_plain(q, t, qm, tm)
+    torch.cuda.synchronize()
+    assert KERNELS["nn_tiled_wide"].launches == before + 1
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda_device) if qm is None else qm
+    assert torch.equal(idxk[valid], idxp[valid])
+    assert torch.equal(d2k[valid], d2p[valid])
+    assert (idxk[~valid] == 0).all() and (d2k[~valid] == tnn.BIG).all()
+    if case == "ties":
+        assert (idxk[:2] == 10).all() and (d2k[:2] == 0).all()
+    if case == "no_valid":
+        assert (idxk[valid] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 64])
+def test_nn_tiled_wide_other_widths_integer_grid_exact(cuda_device, d):
+    """Widths other than 33 stay on nn_wide.cuh, which computes every query
+    row: bit for bit the plain version on an integer grid, masked targets
+    never picked, the query mask not read."""
+    rng = np.random.default_rng(25 + d)
+    q = torch.tensor(rng.integers(0, 4, size=(700, d)), dtype=torch.float32, device=cuda_device)
+    t = torch.tensor(rng.integers(0, 4, size=(1100, d)), dtype=torch.float32, device=cuda_device)
+    qm = torch.tensor(rng.random(700) > 0.3, device=cuda_device)
+    tm = torch.tensor(rng.random(1100) > 0.3, device=cuda_device)
+    d2k, idxk = tnn.nn_search_tiled(q, t, qm, tm)
+    d2p, idxp = tnn.nn_search_tiled_plain(q, t, qm, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(idxk, idxp) and torch.equal(d2k, d2p)
+    assert tm[idxk.long()].all()
+
+
+def _fp32_score_case(case, inputs, rng, device):
+    """(H, e, F, c, mask, thr) for kernel 3's fp32 route: one lane at the
+    large path's shape (K 4096, N 8192, a third valid: the correspondence
+    axis split over a cluster), 2048 lanes (no split), K no multiple of the
+    256 hypotheses a block takes with N over a block's 2048-row list, and
+    lanes with no valid row.  "dyadic": small integers, so every sum is
+    exact in any order; "random": rigid hypotheses and noisy pairs."""
+    B, K, N = {"one_lane": (1, 4096, 8192), "lanes": (2048, 1024, 1024),
+               "ragged_k": (3, 700, 2300), "no_valid": (2, 300, 500)}[case]
+    if inputs == "dyadic":
+        H = rng.integers(-8, 9, size=(B, K, 16)).astype(np.float32)
+        F = rng.integers(-8, 9, size=(B, N, 16)).astype(np.float32)
+        H[..., 15] = 0
+        e = rng.integers(0, 300, size=(B, K)).astype(np.float32)
+        c = rng.integers(0, 300, size=(B, N)).astype(np.float32)
+        H, e, F, c = (torch.tensor(x, device=device) for x in (H, e, F, c))
+        thr = 300.5
+    else:
+        R = exp_so3(torch.tensor(rng.normal(size=(B, K, 3)) * 0.3, dtype=torch.float32))
+        t = torch.tensor(rng.normal(size=(B, K, 3)) * 0.2, dtype=torch.float32)
+        p = torch.tensor(rng.normal(size=(B, N, 3)), dtype=torch.float32)
+        q = p + torch.tensor(rng.normal(size=(B, N, 3)) * 0.3, dtype=torch.float32)
+        F, c = ransac_score.corres_features(p.to(device), q.to(device))
+        H, e = ransac_score.hypothesis_features(R.to(device), t.to(device))
+        thr = float(np.float32(0.6) ** 2)
+    mask = torch.tensor(rng.random((B, N)) < 1 / 3, device=device)
+    if case == "no_valid":
+        mask[0] = False
+    return H.contiguous(), e.contiguous(), F.contiguous(), c.contiguous(), mask, thr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["dyadic", "random"])
+@pytest.mark.parametrize("case", ["one_lane", "lanes", "ragged_k", "no_valid"])
+def test_ransac_score_fp32_kernel_cases(cuda_device, case, inputs):
+    """Kernel 3's fp32 route, one launch: counts equal to the plain version's
+    on dyadic inputs, and inside the float64 bracket of FP32_CHAIN_REL on
+    random ones (equal on >= 99.9% of hypotheses, never more than 1 apart);
+    a lane with no valid row counts 0."""
+    H, e, F, c, m, thr = _fp32_score_case(case, inputs, np.random.default_rng(26), cuda_device)
+    before = {n: KERNELS[n].launches for n in ("ransac_score", "ransac_score_bf16")}
+    ck = ransac_score.score_features(H, e, F, c, m, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, m, thr)
+    torch.cuda.synchronize()
+    assert KERNELS["ransac_score"].launches == before["ransac_score"] + 1
+    assert KERNELS["ransac_score_bf16"].launches == before["ransac_score_bf16"]
+    if inputs == "dyadic":
+        assert torch.equal(ck, cp)
+    else:
+        sure, near = ransac_score.score_count_bracket(H, e, F, c, m, thr,
+                                                      ransac_score.FP32_CHAIN_REL)
+        assert ((ck >= sure) & (ck <= sure + near)).all()
+        diff = (ck - cp).abs()
+        assert diff.max() <= 1 and (diff == 0).float().mean() >= 0.999
+    if case == "no_valid":
+        assert (ck[0] == 0).all() and ck[1].max() > 0
+    else:
+        assert ck.max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random_masks", "no_valid_target"])
+def test_feature_correspondences_cuda_matches_cpu(cuda_device, case):
+    """The mutual filter above DENSE_MAX_ENTRIES on the card (kernel 5 twice:
+    forward with the query mask, backward without) against the plain
+    versions on the CPU, on an integer grid (exact distances, many ties):
+    validity equal on every row, pairs on every valid row, with every
+    target masked too (the CPU run against JAX: test_torch_large.py)."""
+    from tpu3dm_torch.core.cloud import from_reference_arrays
+    from tpu3dm_torch.registration.correspondence import feature_correspondences
+
+    rng = np.random.default_rng({"random_masks": 11, "no_valid_target": 12}[case])
+    cap = 4352  # 4352^2 > 16M entries
+    clouds = []
+    for keep in (0.7, 0.0 if case == "no_valid_target" else 0.75):
+        pts = rng.normal(size=(cap, 3)).astype(np.float32)
+        feat = rng.integers(0, 4, size=(cap, 33)).astype(np.float32)
+        mask = rng.random(cap) < keep
+        clouds.append(dict(points=pts, normals=np.zeros_like(pts), features=feat, mask=mask))
+    cpu = [from_reference_arrays(a, device="cpu") for a in clouds]
+    card = [from_reference_arrays(a, device=cuda_device) for a in clouds]
+    before = KERNELS["nn_tiled_wide"].launches
+    pg, vg = feature_correspondences(*card, mutual_filter=True)
+    torch.cuda.synchronize()
+    assert KERNELS["nn_tiled_wide"].launches == before + 2
+    pc, vc = feature_correspondences(*cpu, mutual_filter=True)
+    assert torch.equal(vg.cpu(), vc)
+    assert torch.equal(pg.cpu()[vc], pc[vc])
 
 
 def _sparse_pair(block, device, n_tgt=30000, n_qry=29000):

@@ -153,6 +153,35 @@ def test_feature_correspondences_match_jax(mutual, caps):
     np.testing.assert_array_equal(pcorr.gather_pairs(ps, pt, _t(pj))[1].numpy(), qj)
 
 
+@pytest.mark.parametrize("case", ["random_masks", "no_valid_target"])
+def test_feature_correspondences_mutual_tiled_masks_match_jax(case):
+    """The mutual filter above DENSE_MAX_ENTRIES (two tiled 33-D searches)
+    with masks that are not a valid prefix, and with every target masked:
+    on an integer grid every distance is exact in both packages and ties
+    abound, so validity and the pairs of valid rows are equal exactly.  The
+    card runs the same inputs against this CPU run in test_torch_kernels.py."""
+    rng = np.random.default_rng({"random_masks": 11, "no_valid_target": 12}[case])
+    cap = 4352  # 4352^2 > 16M entries
+    clouds = []
+    for keep in (0.7, 0.0 if case == "no_valid_target" else 0.75):
+        pts = rng.normal(size=(cap, 3)).astype(np.float32)
+        feat = rng.integers(0, 4, size=(cap, 33)).astype(np.float32)
+        mask = rng.random(cap) < keep
+        arrays = dict(points=pts, normals=np.zeros_like(pts), features=feat, mask=mask)
+        jc = JCloud(points=jnp.asarray(pts), mask=jnp.asarray(mask),
+                    normals=jnp.asarray(arrays["normals"]), features=jnp.asarray(feat))
+        clouds.append((jc, from_reference_arrays(arrays, device="cpu")))
+    (js, ps), (jt, pt) = clouds
+    pj, vj = (np.asarray(x) for x in jcorr.feature_correspondences(js, jt, mutual_filter=True))
+    pp, vp = pcorr.feature_correspondences(ps, pt, mutual_filter=True)
+    np.testing.assert_array_equal(vp.numpy(), vj)
+    np.testing.assert_array_equal(pp.numpy()[vj], pj[vj])
+    if case == "no_valid_target":
+        assert vj.sum() <= 1  # only the row idx_bwd[0] names can pass
+    else:
+        assert vj.sum() > 0.05 * cap
+
+
 def test_feature_correspondences_reject_noise():
     rng = np.random.default_rng(0)
     _, _, ps, pt = _feature_clouds(rng, 10, 10, 16, 16)

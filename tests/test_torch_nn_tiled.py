@@ -104,6 +104,30 @@ def test_tiled_plain_with_query_mask_matches_pallas_on_integer_grid(case):
     assert tm[ip.numpy()[qm]].all()
 
 
+@pytest.mark.parametrize("case", ["prefix", "strided", "random"])
+def test_tiled_plain_d33_with_query_mask_matches_pallas_on_integer_grid(case):
+    """d = 33 (the FPFH width, kernel 5) with the query mask the port's
+    callers pass, on an integer grid where every dot and norm is exact in
+    both packages and ties abound (twin targets, a masked first copy): on
+    the valid query rows the plain version's picks and distances equal the
+    TPU kernel's in interpret mode exactly.  The d = 33 kernel skips masked
+    rows (idx 0, d2 = BIG: held on the card in test_torch_kernels.py)."""
+    rng = np.random.default_rng({"prefix": 4, "strided": 5, "random": 6}[case])
+    q = rng.integers(0, 4, size=(700, 33)).astype(np.float32)
+    t = rng.integers(0, 4, size=(1300, 33)).astype(np.float32)
+    t[1100:1200] = t[:100]
+    q[:50] = t[:50]  # rows at distance 0 from a twin pair
+    tm = rng.random(1300) > 0.25
+    tm[:30] = False  # the first copy of some twins is masked
+    qm = _grid_query_mask(case, rng, 700)
+    dj, ij = jnn.nn_search_pallas(jnp.asarray(q), jnp.asarray(t), jnp.asarray(qm),
+                                  jnp.asarray(tm), tile_t=512, interpret=True)
+    dp, ip = pnn.nn_search_tiled(_t(q), _t(t), _t(qm), _t(tm))
+    np.testing.assert_array_equal(ip.numpy()[qm], np.asarray(ij)[qm])
+    np.testing.assert_array_equal(dp.numpy()[qm], np.asarray(dj)[qm])
+    assert tm[ip.numpy()[qm]].all()
+
+
 @pytest.mark.parametrize("d", [3, 33])
 def test_tiled_plain_matches_xla_reference(d):
     """nn_search_xla expands every d as |t|^2 - 2 q.t + |q|^2 (the port's d = 3

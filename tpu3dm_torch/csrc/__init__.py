@@ -141,10 +141,18 @@ class Kernel:
         return fn
 
     def launch(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raise if CUDA refuses it."""
+        """Launch on ``device``'s current stream; raise if CUDA refuses it.
+
+        The entry points launch on the current CUDA device, so ``device`` is
+        made current first where it is not; where it is, the call skips
+        ``torch.cuda.device``, whose host time a small kernel would feel."""
         fn = self._fn or self._load()
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if device.index is None or device.index == torch.cuda.current_device():
+            rc = fn(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1

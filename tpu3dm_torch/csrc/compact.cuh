@@ -1,5 +1,7 @@
-// Stable block-wide compaction of a lane's valid rows into shared memory,
-// one round of blockDim.x rows at a time (lane_nn.cu and ransac_score.cu).
+// Stable block-wide compaction of a lane's valid rows: compact_slot places
+// one round of blockDim.x rows (lane_nn.cu, nn_tiled.cu, the bf16 score);
+// count_rows and list_rows count and list a whole mask (fpfh_tile.cuh, the
+// fp32 score).
 
 #pragma once
 
@@ -27,4 +29,75 @@ __device__ __forceinline__ int compact_slot(bool keep, int* warp_counts, int* ke
   __syncthreads();
   *kept = total;
   return before + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// The number of rows of [0, n) whose mask byte is set (n for a null mask),
+// the same in every thread.  Every thread of the block calls it; two
+// __syncthreads().
+__device__ __forceinline__ int count_rows(const unsigned char* __restrict__ mask, int n,
+                                          int* warp_counts) {
+  if (mask == nullptr) return n;
+  int c = 0;
+  for (int i = static_cast<int>(threadIdx.x); i < n; i += static_cast<int>(blockDim.x)) {
+    c += mask[i] ? 1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += warp_counts[w];
+  __syncthreads();
+  return total;
+}
+
+// The rows of [0, n) whose mask byte is set (every row for a null mask), in
+// index order: the index of kept row number s goes to order[s - lo] for lo
+// <= s < hi.  A round takes 4 * blockDim.x rows, four consecutive rows a
+// thread, all read before the round's prefix (a warp shuffle scan, then the
+// warps' counts through warp_counts); the scan stops after the round in
+// which the count reaches hi.  Returns the kept rows seen: at least hi when
+// it stopped early, else every kept row.  Every thread of the block calls it
+// with the same arguments; two __syncthreads() a round, the first before
+// any write, so a caller may still be reading an earlier list.
+__device__ __forceinline__ int list_rows(const unsigned char* __restrict__ mask, int n, int lo,
+                                         int hi, int* __restrict__ order, int* warp_counts) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int step = 4 * static_cast<int>(blockDim.x);
+  int nv = 0;
+  for (int r0 = 0; r0 < n && nv < hi; r0 += step) {
+    const int i0 = r0 + 4 * static_cast<int>(threadIdx.x);
+    bool keep[4];
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      keep[k] = i0 + k < n && (mask == nullptr || mask[i0 + k]);
+      c += keep[k] ? 1 : 0;
+    }
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_counts[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      const int cw = warp_counts[w];
+      before += w < warp ? cw : 0;
+      total += cw;
+    }
+    __syncthreads();
+    int s = nv + before + incl - c;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (keep[k]) {
+        if (s >= lo && s < hi) order[s - lo] = i0 + k;
+        ++s;
+      }
+    }
+    nv += total;
+  }
+  return nv;
 }

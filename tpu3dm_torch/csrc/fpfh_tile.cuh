@@ -1,10 +1,11 @@
-// The 33-D FPFH lane tile of the kernels lane_mutual.cu (t3t_lane_mutual,
-// kernel 2) and lane_nn.cu (t3t_lane_nn_wide at d = 33, kernel 7).
+// The 33-D FPFH tile of the kernels lane_mutual.cu (t3t_lane_mutual,
+// kernel 2) and, through fpfh_search.cuh, nn_tiled.cu (t3t_nn_tiled_wide at
+// d = 33, kernel 5) and lane_nn.cu (t3t_lane_nn_wide at d = 33, kernel 7).
 //
 // A block of kThreads threads computes, for one pair lane, the dot products
 // of a tile of kTile query rows with tiles of kTile target rows.  Only the
-// lane's VALID rows are computed: compact_rows lists them in index order
-// (warp ballot + popc prefix, compact.cuh), a tile takes the next kTile of
+// lane's VALID rows are computed: list_rows lists them in index order
+// (warp shuffle prefix, compact.cuh), a tile takes the next kTile of
 // that list, and a row keeps its original index through the list, so "first
 // index" is still the original order.  Each entry's dot is one fmaf chain
 // over k = 0 .. 32 in order from 0, which is the arithmetic of the earlier
@@ -43,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "async_copy.cuh"
 #include "compact.cuh"
 
 namespace fpfh {
@@ -54,23 +56,10 @@ constexpr int kHalf = kTile / 2;
 constexpr int kStride = kTile + 8;          // floats a staged feature row
 constexpr int kTileFloats = kD * kStride;   // one staged tile
 constexpr int kWarps = kThreads / 32;
+constexpr float kBig = 1e30f;               // the part of a masked query row (ops/nn.py:BIG)
 static_assert(kTile == 16 * 8, "16 threads x 8 rows span a tile");
 static_assert((kTile / 8) % kWarps == 0, "a warp stages whole groups of 8 rows");
 static_assert((kTileFloats * 4) % 16 == 0, "tiles stay float4 aligned");
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // A float's bits as an int whose signed order is the float's order (NaN
 // aside), so a shared-memory atomicMin on ints takes a float minimum.
@@ -86,24 +75,6 @@ __device__ __forceinline__ float key_value(int k) {
 // Position in a tile of a thread's row (or column) e = 0 .. 7.
 __device__ __forceinline__ int tile_pos(int t, int e) {
   return (e >> 2) * kHalf + t * 4 + (e & 3);
-}
-
-// The lane's rows whose mask byte is set (every row for a null mask), in
-// index order: the index of kept row number s goes to order[s - lo] for lo
-// <= s < hi.  Returns how many rows are kept.  Every thread of the block
-// calls it with the same arguments (it synchronizes).
-__device__ __forceinline__ int compact_rows(const unsigned char* __restrict__ mask, int n, int lo,
-                                            int hi, int* __restrict__ order, int* warp_counts) {
-  int nv = 0;
-  for (int r0 = 0; r0 < n; r0 += kThreads) {
-    const int i = r0 + static_cast<int>(threadIdx.x);
-    const bool keep = i < n && (mask == nullptr || mask[i]);
-    int kept;
-    const int s = nv + compact_slot(keep, warp_counts, &kept);
-    if (keep && s >= lo && s < hi) order[s - lo] = i;
-    nv += kept;
-  }
-  return nv;
 }
 
 // Stage rows order[first + c], c < kTile, of rows [*, kD] transposed into
@@ -204,10 +175,11 @@ __device__ __forceinline__ void row_merge(float& best, int& best_j) {
 
 // Sweep the staged query tile qs over every target tile of the list
 // tj[0 .. nvb): t_rows / t_sq are the lane's target rows and norms; ts and
-// tsq hold two tiles each.  The caller has issued (not committed) the query
-// tile's copies.  For each tile, in target order: epi(acc, tsq of the tile,
-// first list position of the tile).  Tile t + 1 is copied while tile t is
-// computed, into the buffer of tile t - 1: one barrier a tile.
+// tsq hold two tiles each.  The caller has issued the query tile's copies
+// (committed or not): the first tile's wait covers them.  For each tile, in
+// target order: epi(acc, tsq of the tile, first list position of the tile).
+// Tile t + 1 is copied while tile t is computed, into the buffer of tile
+// t - 1: one barrier a tile.
 template <class Epi>
 __device__ __forceinline__ void sweep_targets(const float* __restrict__ qs, float* __restrict__ ts,
                                               float* __restrict__ tsq,

@@ -16,7 +16,7 @@
 // in VMEM.  Here one block owns one lane, so its column minima are exact
 // without a second pass or global atomics:
 //   - it lists the lane's valid query rows and valid target rows in index
-//     order (fpfh_tile.cuh:compact_rows) and computes only those entries:
+//     order (compact.cuh:list_rows) and computes only those entries:
 //     a masked query row's entries are >= BIG - 2 |a||b| and cannot lower a
 //     valid column's minimum, and a masked column never wins a row.  A lane
 //     with no valid target lists every target instead (their bsq is BIG),
@@ -33,6 +33,10 @@
 //     on order-preserving int bits (min is exact in any order);
 //   - once every query tile is done, each valid row reads colmin at its
 //     pick and writes idx and mutual.
+// The lists (12 bytes a query row, 8 a target row) sit in shared memory
+// beside the ~54 KB of tiles up to ~8,600 rows a side; a larger lane keeps
+// them in a device-memory scratch that the wrapper allocates, so no row
+// count is refused.
 //
 // What bounds it on the H100: operations.  At B = 2048, Na = Nb = 1024 and
 // ~70% valid rows a side, ~1.06e9 valid entries of 35 fp32 instructions (33
@@ -51,25 +55,36 @@ namespace {
 
 using namespace fpfh;
 
-// Dynamic shared memory: the query tile, two target tiles and their norms,
-// then the per-lane lists (floats and ints, 4 bytes each).
-__host__ __device__ constexpr size_t smem_bytes(int Na, int Nb) {
-  return 4 * (3 * static_cast<size_t>(kTileFloats + kTile) + 3 * static_cast<size_t>(Na) +
-              2 * static_cast<size_t>(Nb));
+// 4-byte words of a lane's lists: a listed row's best d2 and pick, the
+// listed query rows, the listed targets and the column minima.
+__host__ __device__ constexpr size_t list_words(int Na, int Nb) {
+  return 3 * static_cast<size_t>(Na) + 2 * static_cast<size_t>(Nb);
 }
 
+// Dynamic shared memory: the query tile, two target tiles and their norms,
+// then (without a scratch) the lane's lists.
+__host__ __device__ constexpr size_t smem_bytes(size_t words) {
+  return 4 * (3 * static_cast<size_t>(kTileFloats + kTile) + words);
+}
+
+// kScratch: the lists live in scratch [B, list_words] in device memory
+// (lanes whose lists do not fit in shared memory), else in shared memory.
+template <bool kScratch>
 __global__ void __launch_bounds__(kThreads, 2)
 lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ asq, const float* __restrict__ bsq,
                    const unsigned char* __restrict__ mask_a,
                    const unsigned char* __restrict__ mask_b, int* __restrict__ idx_out,
-                   unsigned char* __restrict__ mutual_out, int Na, int Nb) {
+                   unsigned char* __restrict__ mutual_out, int* __restrict__ scratch, int Na,
+                   int Nb) {
   extern __shared__ float4 dyn[];
   float* qs = reinterpret_cast<float*>(dyn);    // [kTileFloats] the query tile
   float* ts = qs + kTileFloats;                 // [2][kTileFloats] target tiles
   float* qsq = ts + 2 * kTileFloats;            // [kTile]
   float* tsq = qsq + kTile;                     // [2][kTile]
-  float* rbest = tsq + 2 * kTile;               // [Na] a listed row's best d2
+  float* rbest = kScratch                       // [Na] a listed row's best d2
+      ? reinterpret_cast<float*>(scratch + blockIdx.x * list_words(Na, Nb))
+      : tsq + 2 * kTile;
   int* rpick = reinterpret_cast<int*>(rbest + Na);  // [Na] its target list position
   int* qi = rpick + Na;                         // [Na] listed query rows
   int* tj = qi + Na;                            // [Nb] listed targets
@@ -95,8 +110,8 @@ lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
       }
     }
   }
-  const int nva = compact_rows(lma, Na, 0, Na, qi, warp_counts);
-  int nvb = compact_rows(lmb, Nb, 0, Nb, tj, warp_counts);
+  const int nva = list_rows(lma, Na, 0, Na, qi, warp_counts);
+  int nvb = list_rows(lmb, Nb, 0, Nb, tj, warp_counts);
   if (nvb == 0) {  // no valid target: every target, at its BIG norm
     for (int j = tid; j < Nb; j += kThreads) tj[j] = j;
     nvb = Nb;
@@ -158,13 +173,15 @@ lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // a [B, Na, 33], b [B, Nb, 33], asq [B, Na], bsq [B, Nb] float32, contiguous,
 // the norms BIG at masked rows; mask_a [B, Na] and mask_b [B, Nb] bool (one
-// byte each; null: every row valid).  Writes idx [B, Na] int32 and mutual
-// [B, Na] bool.  One block a lane; launches on ``stream`` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue where a lane's lists do not
-// fit in shared memory.
+// byte each; null: every row valid); scratch null, or int32 [B, 3 Na + 2 Nb]
+// for lanes whose lists do not fit in shared memory (12 bytes a query row
+// and 8 a target row besides ~54 KB of tiles).  Writes idx [B, Na] int32
+// and mutual [B, Na] bool.  One block a lane; launches on ``stream`` and
+// returns cudaGetLastError(), or cudaErrorInvalidValue where the lists do
+// not fit in shared memory and no scratch is given.
 extern "C" int t3t_lane_mutual(const float* a, const float* b, const float* asq, const float* bsq,
                                const unsigned char* mask_a, const unsigned char* mask_b, int* idx,
-                               unsigned char* mutual, int B, int Na, int Nb,
+                               unsigned char* mutual, int* scratch, int B, int Na, int Nb,
                                cudaStream_t stream) {
   if (B <= 0 || Na <= 0 || Nb <= 0) return static_cast<int>(cudaSuccess);
   int device = 0, limit = 0;
@@ -173,12 +190,13 @@ extern "C" int t3t_lane_mutual(const float* a, const float* b, const float* asq,
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(Na, Nb);
+  const size_t smem = smem_bytes(scratch == nullptr ? list_words(Na, Nb) : 0);
   if (smem + 64 > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(lane_mutual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = scratch == nullptr ? lane_mutual_kernel<false> : lane_mutual_kernel<true>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  lane_mutual_kernel<<<B, kThreads, smem, stream>>>(a, b, asq, bsq, mask_a, mask_b, idx, mutual,
-                                                    Na, Nb);
+  kernel<<<B, kThreads, smem, stream>>>(a, b, asq, bsq, mask_a, mask_b, idx, mutual, scratch, Na,
+                                        Nb);
   return static_cast<int>(cudaGetLastError());
 }

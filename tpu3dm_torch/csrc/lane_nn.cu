@@ -51,13 +51,18 @@
 // What bounds it on the H100: operations.  At B = 2048, M = N = 1024, d = 33
 // and ~70% valid rows a side, ~1.06e9 valid entries of 34 fp32 instructions
 // (33 FMAs, then the -2 scale's FMA with tsq) against ~0.3 GB of valid rows.
-// At d = 33 (lane_nn_fpfh_kernel) a block takes 128 of the lane's listed
-// valid queries and sweeps the lane's listed valid targets on the FPFH lane
-// tile (fpfh_tile.cuh: 8 x 8 entries a thread, 4 shared loads for 64 FMAs,
-// the next target tile copied with cp.async while this one is computed);
-// a lane with no valid target lists every target (tsq BIG), so the biased
+// At d = 33 it runs fpfh_search.cuh, the route of kernel 5 at that width,
+// one lane a row of clusters: a block takes 128 of the lane's listed valid
+// queries and sweeps its share of the lane's listed valid targets on the
+// FPFH tile (fpfh_tile.cuh: 8 x 8 entries a thread, 4 shared loads for 64
+// FMAs, the next target tile copied with cp.async while this one is
+// computed).  At the fused step's 2048 lanes the card is full with one
+// block a query tile, so a cluster is one block and its share the lane's
+// whole list; few lanes split the targets over a cluster, and a lane side
+// longer than a block's list is swept in parts, so there is no row limit.
+// A lane with no valid target lists every target (tsq BIG), so the biased
 // entries decide there, as in the plain version.  Other widths (8 <= d <=
-// 64) run nn_wide_block (nn_wide.cuh, the body of nn_tiled.cu's d >= 8
+// 64) run nn_wide_block (nn_wide.cuh, the body of nn_tiled.cu's d != 33
 // kernel) over every row: 64-query tiles, a 4 x 4 register tile a thread,
 // the pair lane on the grid's y axis.  No tensor cores: the contract is
 // fp32 and the port keeps TF32 off.
@@ -66,7 +71,7 @@
 #include <math_constants.h>
 
 #include "compact.cuh"
-#include "fpfh_tile.cuh"
+#include "fpfh_search.cuh"
 #include "nn_wide.cuh"
 #include "sqdist3.cuh"
 
@@ -158,84 +163,6 @@ lane_nn_wide_kernel(const float* __restrict__ q, const float* __restrict__ t,
                 idx_out + lane * M, M, N, D, blockIdx.x * kWideTile);
 }
 
-// Dynamic shared memory of lane_nn_fpfh_kernel: the query tile, two target
-// tiles and their norms, the block's listed queries and the lane's listed
-// targets.
-constexpr size_t fpfh_smem_bytes(int N) {
-  return 4 * (3 * static_cast<size_t>(fpfh::kTileFloats) + 3 * fpfh::kTile +
-              static_cast<size_t>(N));
-}
-
-__global__ void __launch_bounds__(fpfh::kThreads, 2)
-lane_nn_fpfh_kernel(const float* __restrict__ q, const float* __restrict__ t,
-                    const float* __restrict__ tsq, const unsigned char* __restrict__ qmask,
-                    const unsigned char* __restrict__ tmask, float* __restrict__ part_out,
-                    int* __restrict__ idx_out, int M, int N) {
-  extern __shared__ float4 dyn[];
-  float* qs = reinterpret_cast<float*>(dyn);  // the query tile
-  float* ts = qs + fpfh::kTileFloats;         // two target tiles
-  float* tsq_s = ts + 2 * fpfh::kTileFloats;  // their norms
-  int* qi = reinterpret_cast<int*>(tsq_s + 2 * fpfh::kTile);  // the block's listed queries
-  int* tj = qi + fpfh::kTile;                 // [N] the lane's listed targets
-  __shared__ int warp_counts[fpfh::kWarps];
-
-  const size_t lane = blockIdx.y;
-  const float* lq = q + lane * M * fpfh::kD;
-  const float* lt = t + lane * N * fpfh::kD;
-  const float* ltsq = tsq + lane * N;
-  const unsigned char* lqm = qmask == nullptr ? nullptr : qmask + lane * M;
-  const unsigned char* ltm = tmask == nullptr ? nullptr : tmask + lane * N;
-  float* lpart = part_out + lane * M;
-  int* lidx = idx_out + lane * M;
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * fpfh::kTile;  // this block's query rows and list positions
-
-  if (lqm != nullptr && q0 + tid < M && tid < fpfh::kTile && !lqm[q0 + tid]) {
-    lpart[q0 + tid] = kBig;
-    lidx[q0 + tid] = 0;
-  }
-  const int nva = fpfh::compact_rows(lqm, M, q0, q0 + fpfh::kTile, qi, warp_counts);
-  if (q0 >= nva) return;  // uniform: no listed query for this block
-  int nvb = fpfh::compact_rows(ltm, N, 0, N, tj, warp_counts);
-  if (nvb == 0) {  // no valid target: every target, at its BIG norm
-    for (int j = tid; j < N; j += fpfh::kThreads) tj[j] = j;
-    nvb = N;
-  }
-  __syncthreads();
-
-  const int ty = tid >> 4, tx = tid & 15;
-  const int n_rows = min(fpfh::kTile, nva - q0);
-  fpfh::stage_tile(qs, nullptr, lq, nullptr, qi, 0, n_rows);
-  float best[8];
-  int best_j[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    best[e] = CUDART_INF_F;
-    best_j[e] = 0;
-  }
-  fpfh::sweep_targets(qs, ts, tsq_s, lt, ltsq, tj, nvb,
-                      [&](float (&acc)[8][8], const float* tsq_t, int first) {
-    float tn[8];
-    fpfh::load8(tsq_t, tx, tn);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(-2.0f, acc[r][c], tn[c]);
-      fpfh::row_update(acc[r], tx, first, best[r], best_j[r]);
-    }
-  });
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    fpfh::row_merge(best[r], best_j[r]);
-    const int s = fpfh::tile_pos(ty, r);
-    if (tx == 0 && s < n_rows) {
-      const int i = qi[s];
-      lpart[i] = best[r];
-      lidx[i] = tj[best_j[r]];
-    }
-  }
-}
-
 }  // namespace
 
 // q [B, M, 3], t [B, N, 3] float32 and mask [B, N] bool (one byte each; null:
@@ -256,32 +183,18 @@ extern "C" int t3t_lane_nn_smalld(const float* q, const float* t, const unsigned
 // min_j fmaf(-2, q[b, i].t[b, j], tsq[b, j]) float32 and idx [B, M] int32
 // (at d = 33: idx 0 and part BIG at a masked query).  Launches on
 // ``stream`` and returns cudaGetLastError(), or cudaErrorInvalidValue where
-// d is out of range or (d = 33) a lane's target list does not fit in shared
-// memory.
+// d is out of range or N >= 2^30.
 extern "C" int t3t_lane_nn_wide(const float* q, const float* t, const float* tsq,
                                 const unsigned char* qmask, const unsigned char* tmask,
                                 float* part, int* idx, int B, int M, int N, int d,
                                 cudaStream_t stream) {
   if (B <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (d < 1 || d > kWideMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  if (d != fpfh::kD) {
-    const dim3 grid((M + kWideTile - 1) / kWideTile, B);
-    lane_nn_wide_kernel<<<grid, kWideThreads, 0, stream>>>(q, t, tsq, part, idx, M, N, d);
-    return static_cast<int>(cudaGetLastError());
+  if (d < 1 || d > kWideMaxD || N >= kPartTag) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == fpfh::kD) {
+    return static_cast<int>(launch_fpfh_search(q, t, tsq, qmask, tmask, part, idx, B, M, N,
+                                               stream));
   }
-  int device = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = fpfh_smem_bytes(N);
-  if (smem + 64 > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(lane_nn_fpfh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + fpfh::kTile - 1) / fpfh::kTile, B);
-  lane_nn_fpfh_kernel<<<grid, fpfh::kThreads, smem, stream>>>(q, t, tsq, qmask, tmask, part, idx,
-                                                              M, N);
+  const dim3 grid((M + kWideTile - 1) / kWideTile, B);
+  lane_nn_wide_kernel<<<grid, kWideThreads, 0, stream>>>(q, t, tsq, part, idx, M, N, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,25 +47,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kR = 4;                // queries a thread
 constexpr int kQB = 512;             // query rows a CUDA block
 constexpr int kThreads = kQB / kR;
 constexpr int kChunk = 512;          // target rows a step: 8 KB, two buffers
-
-__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __global__ void __launch_bounds__(kThreads)
 blocksparse_kernel(const float* __restrict__ q, const float4* __restrict__ t4,
@@ -103,7 +92,7 @@ blocksparse_kernel(const float* __restrict__ q, const float4* __restrict__ t4,
   };
   stage(0);
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();  // step s has landed (this thread's copies)
+    cp_async_wait<0>();  // step s has landed (this thread's copies)
     __syncthreads();      // ... every thread's, and step s - 1's buffer is free
     if (s + 1 < steps) stage(s + 1);
     const int first = (s % steps_a_visit) * kChunk;

@@ -14,15 +14,18 @@
 //     two agree bit for bit.  A masked query (JAX leaves its result
 //     unspecified) is not computed: it gets idx 0 and d2 = BIG.
 //
-//   t3t_nn_tiled_wide  <-  _nn_kernel (d >= 8: the FPFH searches of
+//   t3t_nn_tiled_wide  <-  _nn_kernel (8 <= d <= 64: the FPFH searches of
 //     nn_mutual at 8192 x 8192 x 33):
 //       p(i, j) = tsq[j] - 2 (q_i . t_j)
-//     with tsq = |t_j|^2, or BIG for a masked target; the tile is
-//     nn_wide_block (nn_wide.cuh, shared with lane_nn.cu).  The dot is an
-//     fmaf chain over k in order; the plain version's is a cuBLAS fp32
-//     product, so the two agree up to the dot's summation order.  The
-//     wrapper adds |q_i|^2 and clamps at 0 after the search, as
-//     nn_search_pallas does.
+//     with tsq = |t_j|^2, or BIG for a masked target, as one fmaf(-2, dot,
+//     tsq) after a dot that is one fmaf chain over k in order; the plain
+//     version's is a cuBLAS fp32 product, so the two agree up to the dot's
+//     summation order.  The wrapper adds |q_i|^2 and clamps at 0 after the
+//     search, as nn_search_pallas does.  At d = 33, the only wide width of
+//     the port's paths, it runs fpfh_search.cuh (the FPFH tile over listed
+//     valid rows, the targets split across a cluster) and takes both masks:
+//     a masked query is not computed (idx 0, p = BIG).  Other widths run
+//     nn_wide.cuh over every row.
 //
 // Both keep, per query, the running minimum and its FIRST index: a strict `<`
 // over ascending targets, which is the TPU kernel's rule (first argmin inside
@@ -59,12 +62,13 @@
 // 128 threads ran alike, ahead of 64 threads.
 //
 // wide does d + 1 per entry (d FMAs, then one fmaf of the -2 scale with
-// tsq; 8192^2 x 33: 2.2e9 FMAs against 2 MB moved): 64 x 64 tiles of
-// queries and targets, transposed in shared memory, each thread a 4 x 4
-// register tile, so every pair of float4 shared loads feeds 16 FMAs.  No
-// tensor cores: the contract is fp32 (TF32 is off in the port), and the 16
-// threads that share a query row merge their running bests with warp
-// shuffles.
+// tsq; 8192^2 x 33: 2.2e9 FMAs against 2 MB moved).  At d = 33 the design
+// is fpfh_search.cuh's, which says what it does about that bound (PERF.md,
+// on the H100: from 0.4062 ms at 11.6% of the bound on B's 8192^2, where
+// the 64 x 64 tiles of nn_wide.cuh filled 128 blocks of 8 warps and
+// computed masked rows).  Other widths keep nn_wide.cuh (4 x 4 register
+// tiles, every row).
+// No tensor cores: the contract is fp32 (TF32 is off in the port).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,6 +77,7 @@
 #include <algorithm>
 
 #include "compact.cuh"
+#include "fpfh_search.cuh"
 #include "nn_wide.cuh"
 #include "sqdist3.cuh"
 
@@ -304,14 +309,22 @@ extern "C" int t3t_nn_tiled_smalld(const float* q, const float* t, const unsigne
   return static_cast<int>(cudaGetLastError());
 }
 
-// q [M, d], t [N, d], tsq [N] float32, contiguous, 8 <= d <= 64; writes
-// part [M] = min_j (tsq[j] - 2 q.t_j) float32 and idx [M] int32.  Launches
-// on ``stream`` and returns cudaGetLastError().
+// q [M, d], t [N, d], tsq [N] float32, contiguous, 8 <= d <= 64, tsq BIG at
+// masked targets; qmask [M] and tmask [N] one byte a row (null: every row
+// valid), read at d = 33 only.  Writes part [M] = min_j (tsq[j] - 2 q.t_j)
+// float32 and idx [M] int32 (at d = 33: idx 0 and part BIG at a masked
+// query).  Launches on ``stream`` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue where d is out of range or N >= 2^30.
 extern "C" int t3t_nn_tiled_wide(const float* q, const float* t, const float* tsq,
+                                 const unsigned char* qmask, const unsigned char* tmask,
                                  float* part, int* idx, int M, int N, int d,
                                  cudaStream_t stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (d < 1 || d > kWideMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > kWideMaxD || N >= kPartTag) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == fpfh::kD) {
+    return static_cast<int>(launch_fpfh_search(q, t, tsq, qmask, tmask, part, idx, 1, M, N,
+                                               stream));
+  }
   const int grid = (M + kWideTile - 1) / kWideTile;
   nn_wide_kernel<<<grid, kWideThreads, 0, stream>>>(q, t, tsq, part, idx, M, N, d);
   return static_cast<int>(cudaGetLastError());

@@ -40,73 +40,192 @@
 // chain, so a count may differ from the plain version's only where d2 lies
 // within that rounding of thr (chip_smoke.py and the card tests bracket it).
 //
-// t3t_ransac_score: H and F in fp32 (approx_score=False, and the large
-// path's one-lane two-mode score), the first design, kept for exact fp32
-// inputs, which a bf16 tensor-core product cannot take: one thread per
-// hypothesis keeps its H row (16 registers) and its count in registers; the
-// lane's correspondences stream through shared memory (F rows as four
-// float4 broadcasts; c with the mask folded in as +inf) through an fp32
-// fmaf chain over the 16 features in order, then + c, then + e.
+// t3t_ransac_score: H and F in fp32 (approx_score=False at 2048 lanes, and
+// the large path's one-lane two-mode score: K 4096, N 8192, ~2,600 valid),
+// for exact fp32 inputs, which a bf16 tensor-core product cannot take (and
+// the port keeps TF32 off).  What bounds it on the H100: operations, 19
+// fp32 instructions an entry (16 FMAs, the adds of c and e, the compare)
+// over every hypothesis and the lane's VALID correspondences.  The design:
+//   - only valid rows: a block lists its lane's valid correspondences in
+//     index order (compact.cuh:list_rows) and copies their F rows and c into
+//     shared memory in tiles of kRows, double-buffered by cp.async (the next
+//     tile in flight while this one is computed);
+//   - a register tile: a block takes kHyps hypotheses, kHypThreads threads
+//     across them, kHypsPerThread a thread (H rows, e and counts in
+//     registers), so one row's 4 broadcast float4 loads and its c feed
+//     4 x 16 FMAs; the block's kRowGroups groups of kHypThreads threads take
+//     every kRowGroups-th row of a tile, and their counts are summed in
+//     shared memory at the end;
+//   - the card filled at few lanes: lanes x hypothesis tiles blocks fill it
+//     at 2048 lanes, but one lane gives 16 blocks, so there a cluster of up
+//     to 8 blocks shares a hypothesis tile, block s taking the s-th of
+//     nsplit equal shares of the listed rows, and the blocks' partial counts
+//     are summed through distributed shared memory (integer sums: exact in
+//     any order, so the counts do not depend on the split): one launch, no
+//     memset, no atomics.  No block leaves early, so every block reaches
+//     both cluster.sync().
+// Each entry keeps the first design's arithmetic: one fmaf chain over the 16
+// features in order from 0, then + c, then + e, then < thr (a NaN or inf
+// from a degenerate fit compares false), so its d2 keeps its bits.  Chosen
+// on the H100 with the ptxas report and a variant timer (PERF.md): 4
+// hypotheses a thread and 64 threads across them (119 registers, no
+// spills) ran fastest at one lane and at 2048 lanes, ahead of 2 a thread x
+// 128 threads, then 4 x 32 and 2 x 64 (about even at one lane, a third
+// slower at 2048 lanes); 8 a thread spills and passes 48 KB of static
+// shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "async_copy.cuh"
 #include "compact.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 512;  // correspondences staged per pass: 32 KB of F + 2 KB of c
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kThreads = 256;
+constexpr int kHypsPerThread = 4;                    // MT
+constexpr int kHypThreads = 64;                      // threads across a block's hypotheses
+constexpr int kRowGroups = kThreads / kHypThreads;   // groups of threads across rows
+constexpr int kHyps = kHypThreads * kHypsPerThread;  // hypotheses a block: 256
+constexpr int kRows = 256;       // listed rows a staged tile: 16 KB of F + 1 KB of c
+constexpr int kListCap = 2048;   // listed rows a block holds at once
+constexpr int kMaxSplit = 8;     // blocks of a cluster: the portable maximum
+constexpr int kSMs = 132;
+static_assert(kThreads % kHypThreads == 0 && kHypThreads % 32 == 0, "whole warps a row group");
+static_assert(kHyps <= kThreads, "one thread sums each hypothesis's counts");
+
+// Copy listed rows list[first + r], r < n, of the lane's F (4 float4 a row)
+// and c into fs and cs.  Issues cp.async copies: the caller commits them.
+__device__ __forceinline__ void stage_rows(float4* __restrict__ fs, float* __restrict__ cs,
+                                           const float4* __restrict__ lF,
+                                           const float* __restrict__ lc,
+                                           const int* __restrict__ list, int first, int n) {
+  for (int x = threadIdx.x; x < 4 * n; x += kThreads) {
+    cp_async16(fs + x, lF + 4 * static_cast<size_t>(list[first + (x >> 2)]) + (x & 3));
+  }
+  for (int r = threadIdx.x; r < n; r += kThreads) cp_async4(cs + r, lc + list[first + r]);
+}
+
+// Grid (hypothesis tiles x nsplit, lanes), clusters of (nsplit, 1, 1).
+__global__ void __launch_bounds__(kThreads, 2)
 score_kernel(const float* __restrict__ H, const float* __restrict__ e,
              const float* __restrict__ F, const float* __restrict__ c,
              const unsigned char* __restrict__ mask, float thr,
              int* __restrict__ counts, int K, int N) {
-  __shared__ float4 f4[kTile * 4];
-  __shared__ float sc[kTile];
-  const int lane = blockIdx.y;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const size_t hk = static_cast<size_t>(lane) * K + (k < K ? k : 0);
+  constexpr int MT = kHypsPerThread;
+  __shared__ float4 fs[2][kRows * 4];           // two tiles of listed F rows
+  __shared__ float cs[2][kRows];                // and their c
+  __shared__ int list[kListCap];                // listed rows of this part
+  __shared__ int group_counts[kRowGroups][kHyps];
+  __shared__ int block_counts[kHyps];           // read by the cluster
+  __shared__ int warp_counts[kThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int nsplit = static_cast<int>(cluster.num_blocks());
+  const size_t lane = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.x / nsplit) * kHyps;
+  const int h = threadIdx.x % kHypThreads;  // hypotheses k0 + m * kHypThreads + h
+  const int g = threadIdx.x / kHypThreads;  // rows g, g + kRowGroups, ... of a tile
 
-  float h[16];
-  const float4* H4 = reinterpret_cast<const float4*>(H) + hk * 4;
+  float hv[MT][16], ek[MT];
+  int cnt[MT];
 #pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const float4 r = H4[v];
-    h[4 * v] = r.x;
-    h[4 * v + 1] = r.y;
-    h[4 * v + 2] = r.z;
-    h[4 * v + 3] = r.w;
-  }
-  const float ek = e[hk];
-
-  const float4* F4 = reinterpret_cast<const float4*>(F);
-  int count = 0;
-  for (int base = 0; base < N; base += kTile) {
-    const int n = min(kTile, N - base);
-    const size_t first = static_cast<size_t>(lane) * N + base;
-    __syncthreads();
-    for (int x = threadIdx.x; x < n * 4; x += kThreads) f4[x] = F4[first * 4 + x];
-    for (int r = threadIdx.x; r < n; r += kThreads) {
-      sc[r] = mask[first + r] ? c[first + r] : CUDART_INF_F;
+  for (int m = 0; m < MT; ++m) {
+    const int k = min(k0 + m * kHypThreads + h, K - 1);  // rows past K compute, unwritten
+    const size_t hk = lane * K + k;
+    const float4* H4 = reinterpret_cast<const float4*>(H) + hk * 4;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float4 r = H4[v];
+      hv[m][4 * v] = r.x;
+      hv[m][4 * v + 1] = r.y;
+      hv[m][4 * v + 2] = r.z;
+      hv[m][4 * v + 3] = r.w;
     }
-    __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      float acc = 0.f;
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const float4 f = f4[4 * r + v];
-        acc = __fmaf_rn(h[4 * v], f.x, acc);
-        acc = __fmaf_rn(h[4 * v + 1], f.y, acc);
-        acc = __fmaf_rn(h[4 * v + 2], f.z, acc);
-        acc = __fmaf_rn(h[4 * v + 3], f.w, acc);
+    ek[m] = e[hk];
+    cnt[m] = 0;
+  }
+
+  const float4* lF = reinterpret_cast<const float4*>(F) + lane * N * 4;
+  const float* lc = c + lane * N;
+  const unsigned char* lm = mask + lane * N;
+  // This block's share: positions [lo, hi) of the lane's listed rows.
+  const int nv = count_rows(lm, N, warp_counts);
+  const int lo = static_cast<int>(static_cast<long long>(nv) * split / nsplit);
+  const int hi = static_cast<int>(static_cast<long long>(nv) * (split + 1) / nsplit);
+  for (int p = lo; p < hi; p += kListCap) {
+    // list_rows' first barrier comes before its first write: every thread
+    // is done with the last part's tiles and list by then.
+    const int n = min(kListCap, hi - p);
+    list_rows(lm, N, p, p + n, list, warp_counts);
+    __syncthreads();  // list
+    const int n_tiles = (n + kRows - 1) / kRows;
+    stage_rows(fs[0], cs[0], lF, lc, list, 0, min(kRows, n));
+    cp_async_commit();
+    for (int t = 0; t < n_tiles; ++t) {
+      const int buf = t & 1;
+      cp_async_wait<0>();  // tile t has landed (this thread's copies)
+      __syncthreads();      // everyone's copies, and everyone is done with tile t - 1
+      if (t + 1 < n_tiles) {
+        stage_rows(fs[buf ^ 1], cs[buf ^ 1], lF, lc, list, (t + 1) * kRows,
+                   min(kRows, n - (t + 1) * kRows));
+        cp_async_commit();
       }
-      const float d2 = __fadd_rn(__fadd_rn(acc, sc[r]), ek);
-      count += d2 < thr ? 1 : 0;
+      const int rows = min(kRows, n - t * kRows);
+      const float4* f4 = fs[buf];
+      const float* ct = cs[buf];
+      for (int r = g; r < rows; r += kRowGroups) {
+        const float4 f0 = f4[4 * r], f1 = f4[4 * r + 1], f2 = f4[4 * r + 2], f3 = f4[4 * r + 3];
+        const float cr = ct[r];
+        const float fv[16] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w,
+                              f2.x, f2.y, f2.z, f2.w, f3.x, f3.y, f3.z, f3.w};
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          float acc = 0.f;
+#pragma unroll
+          for (int x = 0; x < 16; ++x) acc = __fmaf_rn(hv[m][x], fv[x], acc);
+          const float d2 = __fadd_rn(__fadd_rn(acc, cr), ek[m]);
+          cnt[m] += d2 < thr ? 1 : 0;
+        }
+      }
     }
   }
-  if (k < K) counts[hk] = count;
+
+  // The row groups' counts, then (split) the cluster's, summed once each.
+#pragma unroll
+  for (int m = 0; m < MT; ++m) group_counts[g][m * kHypThreads + h] = cnt[m];
+  __syncthreads();
+  const int j = threadIdx.x;  // the block's hypothesis k0 + j
+  int total = 0;
+  if (j < kHyps) {
+#pragma unroll
+    for (int w = 0; w < kRowGroups; ++w) total += group_counts[w][j];
+  }
+  int* out = counts + lane * K + k0 + j;
+  if (nsplit == 1) {
+    if (j < kHyps && k0 + j < K) *out = total;
+    return;
+  }
+  if (j < kHyps) block_counts[j] = total;
+  cluster.sync();
+  if (j < kHyps && j % nsplit == split && k0 + j < K) {
+    int sum = 0;
+    for (int r = 0; r < nsplit; ++r) sum += cluster.map_shared_rank(block_counts, r)[j];
+    *out = sum;
+  }
+  cluster.sync();  // no block leaves while another may read its block_counts
+}
+
+// Blocks of a cluster for `blocks` clusters (hypothesis tiles x lanes):
+// enough to put two blocks on every SM, a power of two up to 8, and no share
+// under 256 rows.
+int score_split(long long blocks, int N) {
+  int nsplit = 1;
+  while (nsplit < kMaxSplit && blocks * nsplit < 2 * kSMs && 2 * nsplit * 256 <= N) nsplit *= 2;
+  return nsplit;
 }
 
 // ---------------------------------------------------------------- bf16 --
@@ -226,8 +345,23 @@ extern "C" int t3t_ransac_score(const float* H, const float* e, const float* F,
                                 const float* c, const unsigned char* mask, float thr,
                                 int* counts, int B, int K, int N, cudaStream_t stream) {
   if (B <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((K + kThreads - 1) / kThreads, B);
-  score_kernel<<<grid, kThreads, 0, stream>>>(H, e, F, c, mask, thr, counts, K, N);
+  const long long tiles = (static_cast<long long>(K) + kHyps - 1) / kHyps;
+  const int nsplit = score_split(tiles * B, N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * nsplit), static_cast<unsigned>(B), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, score_kernel, H, e, F, c, mask, thr, counts,
+                                             K, N);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,9 +32,10 @@ NN_TILED_SMALLD = Kernel(
     "nn_tiled_smalld", "nn_tiled.cu", "t3t_nn_tiled_smalld", [PTR] * 6 + [INT] * 2,
 )
 NN_TILED_WIDE = Kernel(
-    "nn_tiled_wide", "nn_tiled.cu", "t3t_nn_tiled_wide", [PTR] * 5 + [INT] * 3,
+    "nn_tiled_wide", "nn_tiled.cu", "t3t_nn_tiled_wide", [PTR] * 7 + [INT] * 3,
 )
 WIDE_MAX_D = 64  # the wide kernel's staged feature width
+FPFH_DIM = 33  # the width whose kernels take the query mask (csrc/fpfh_search.cuh)
 
 
 def lane_slices(n_lanes: int, entries_per_lane: int, max_entries: int = 1 << 26):
@@ -136,8 +137,9 @@ def nn_search_tiled(
       query: [Nq, d] float32; target: [Nt, d] float32.  On CUDA d = 3 or
         8 <= d <= 64 (the kernels' widths); other widths raise there.
       query_mask: [Nq] bool or None.  Masked queries get unspecified
-        results, as in JAX: the plain version and the d >= 8 kernel compute
-        them, the d = 3 kernel skips them (idx 0, d2 = BIG).
+        results, as in JAX: the plain version and the kernel at d != 3, 33
+        compute them, the d = 3 and d = 33 kernels skip them (idx 0,
+        d2 = BIG).
       target_mask: [Nt] bool or None; masked targets never win.
 
     Returns (d2 [Nq] float32, idx [Nq] int32), ties to the smaller index.
@@ -169,9 +171,14 @@ def nn_search_tiled(
         raise NotImplementedError(f"{where}: the kernel takes d <= {WIDE_MAX_D}, got {d}")
     tsq = _sq_norms(target, target_mask)
     dev = check_cuda_tensors(where, 1, query=query, target=target, tsq=tsq, part=out, idx=idx)
+    if d == FPFH_DIM:
+        query_mask = _byte_mask(where, query_mask, (nq,), dev)
+        target_mask = _byte_mask(where, target_mask, (nt,), dev)
+    else:
+        query_mask = target_mask = None  # nn_wide.cuh computes every row; tsq masks targets
     NN_TILED_WIDE.launch(
-        dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(),
-        out.data_ptr(), idx.data_ptr(), nq, nt, d,
+        dev, query.data_ptr(), target.data_ptr(), tsq.data_ptr(), _ptr(query_mask),
+        _ptr(target_mask), out.data_ptr(), idx.data_ptr(), nq, nt, d,
     )
     return torch.clamp_min(out + torch.sum(query * query, dim=-1), 0.0), idx
 
@@ -212,7 +219,11 @@ def nn_mutual(
         idx_bwd = torch.argmin(d2, dim=-2).to(torch.int32)
         return idx_fwd, idx_bwd
     _, idx_fwd = nn_search(a, b, mask_a, mask_b)
-    _, idx_bwd = nn_search(b, a, mask_b, mask_a)
+    # No query mask backward: every b row gets its nearest a, masked ones
+    # too, as in the plain version (a kernel skips masked query rows).  A
+    # caller that reads idx_bwd[idx_fwd] reads a masked b row when every b is
+    # masked, and then gets the same answer on the card as on the CPU.
+    _, idx_bwd = nn_search(b, a, None, mask_a)
     return idx_fwd, idx_bwd
 
 

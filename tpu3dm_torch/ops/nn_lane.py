@@ -6,8 +6,8 @@ Two wrappers with the JAX contracts, batched over a leading pair dimension:
     csrc/lane_nn.cu: ``t3t_lane_nn_smalld`` for d = 3 (replacing
     ``_lane_nn_smalld_kernel``) — the ICP and rescue-verification searches —
     and ``t3t_lane_nn_wide`` for 8 <= d <= 64 (replacing
-    ``_lane_nn_mxu_kernel``) — the non-mutual FPFH correspondences, on the
-    FPFH lane tile (csrc/fpfh_tile.cuh) at d = 33;
+    ``_lane_nn_mxu_kernel``) — the non-mutual FPFH correspondences, at
+    d = 33 on the route of kernel 5 (csrc/fpfh_search.cuh);
   - ``nn_mutual_mask_lane``: forward 33-D NN plus the mutuality test against
     GLOBAL column minima (kernel csrc/lane_mutual.cu, one block a lane on the
     FPFH lane tile, replacing ``_lane_mutual_kernel``) — the FPFH
@@ -24,6 +24,7 @@ import torch
 
 from tpu3dm_torch.csrc import INT, PTR, Kernel, check_cuda_tensors, check_dtype, dispatch
 from tpu3dm_torch.ops.nn import (
+    FPFH_DIM,
     SMALL_D_MAX,
     WIDE_MAX_D,
     _byte_mask,
@@ -42,25 +43,19 @@ LANE_NN_WIDE = Kernel(
     "lane_nn_wide", "lane_nn.cu", "t3t_lane_nn_wide", [PTR] * 7 + [INT] * 4,
 )
 LANE_MUTUAL = Kernel(
-    "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual", [PTR] * 8 + [INT] * 3,
+    "lane_mutual", "lane_mutual.cu", "t3t_lane_mutual", [PTR] * 9 + [INT] * 3,
 )
-FPFH_DIM = 33  # the FPFH lane tile's feature width (kernel 2; kernel 7's d = 33 route)
-# Rows a lane may hold on a side for the FPFH lane tile: its row lists live in
-# shared memory (kernel 2: 12 bytes a query row and 8 a target row besides
-# ~55 KB of tiles, within the H100's 227 KB a block).
-FPFH_MAX_ROWS = 8192
+# Kernel 2 keeps a lane's row lists (12 bytes a query row, 8 a target row) in
+# shared memory beside ~54 KB of tiles up to this many bytes (8192 rows a
+# side), within the H100's 227 KB a block; a larger lane keeps them in a
+# device-memory scratch.
+MUTUAL_SHARED_LIST_BYTES = 20 * 8192
 
 
 def _check_batched(where: str, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.ndim != 3 or y.ndim != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
         raise ValueError(f"{where}: expected [B, M, d] and [B, N, d], got "
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
-
-
-def _check_fpfh_rows(where: str, *rows: int) -> None:
-    if max(rows) > FPFH_MAX_ROWS:
-        raise NotImplementedError(f"{where}: the FPFH lane tile takes at most {FPFH_MAX_ROWS} "
-                                  f"rows a lane, got {max(rows)}")
 
 
 def nn_search_lane_plain(query, target, query_mask=None, target_mask=None):
@@ -117,8 +112,6 @@ def nn_search_lane(
         return out, idx
     if d > WIDE_MAX_D:
         raise NotImplementedError(f"{where}: the kernel takes d <= {WIDE_MAX_D}, got {d}")
-    if d == FPFH_DIM:
-        _check_fpfh_rows(where, n)
     tsq = _sq_norms(target, target_mask)
     dev = check_cuda_tensors(where, b, query=query, target=target, tsq=tsq, part=out, idx=idx)
     query_mask = _byte_mask(where, query_mask, (b, m), dev)
@@ -174,7 +167,6 @@ def nn_mutual_mask_lane(
     if a.shape[-1] != FPFH_DIM:
         raise NotImplementedError(f"{where}: the kernel takes d = {FPFH_DIM}, got {a.shape[-1]}")
     nl, na, nb = a.shape[0], a.shape[1], b.shape[1]
-    _check_fpfh_rows(where, na, nb)
     # The norms keep BIG at masked rows: a lane with no valid target computes
     # the biased entries, as the plain version does.
     asq = _sq_norms(a, mask_a)
@@ -185,8 +177,11 @@ def nn_mutual_mask_lane(
     dev = check_cuda_tensors(where, nl, a=a, b=b, asq=asq, bsq=bsq, idx=idx, mutual=mutual)
     mask_a = _byte_mask(where, mask_a, (nl, na), dev)
     mask_b = _byte_mask(where, mask_b, (nl, nb), dev)
+    scratch = None
+    if 12 * na + 8 * nb > MUTUAL_SHARED_LIST_BYTES:
+        scratch = torch.empty((nl, 3 * na + 2 * nb), dtype=torch.int32, device=dev)
     LANE_MUTUAL.launch(
         dev, a.data_ptr(), b.data_ptr(), asq.data_ptr(), bsq.data_ptr(), _ptr(mask_a),
-        _ptr(mask_b), idx.data_ptr(), mutual.data_ptr(), nl, na, nb,
+        _ptr(mask_b), idx.data_ptr(), mutual.data_ptr(), _ptr(scratch), nl, na, nb,
     )
     return idx, mutual
