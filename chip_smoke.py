@@ -27,6 +27,12 @@ Phases (any failure exits non-zero and prints no ok line):
      (counts inside the float64 bracket of its rounding, >= 99.9% equal,
      never more than 1 apart), then its fp32 route on the same values in
      fp32 tensors (the "ransac_score" row, as this path ran it before);
+     kernel 2 on bf16-rounded features with the fp32 norms (path E's
+     search, row "lane_mutual_approx") and its bf16-cross entry on the same
+     (path F4's, "lane_mutual_bf16_cross"), both bit-equal to their plain
+     versions (an in-order sum of exact products); the score's fp32 route at
+     the rescore shape (128 fp32 hypotheses a lane over all 1024 rows, row
+     "ransac_score_rescore", inside the fp32 float64 bracket);
   5. the main path: fused_register_step over the 2048 lanes (4096
      hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
      search, bf16 score), launch counts zeroed just before and read just
@@ -39,6 +45,27 @@ Phases (any failure exits non-zero and prints no ok line):
      zeroed just before and read just after, every lane gated, lanes 0-3
      against the CPU, pairs/s, stage times, peak memory, one profiled step;
      path D: the rescue with the mutual filter, gated and timed once;
+  6c. path E, the new main path: fused_register_step over the same 2048
+     lanes at bench.py's settings (the default nn_impl "values_pk": bf16
+     feature cross, f16 ICP payload; approx_features, bf16 score, 4096
+     hypotheses, 8 ICP iterations / 4 solves a search), launch counts zeroed
+     just before and read just after (1 lane_mutual, 2 lane_nn_smalld, 1 bf16
+     score), every lane gated, lanes 0-3 against the CPU, pairs/s (median of
+     3), stages, peak memory, one profiled step;
+     path F, batch.py's options on the same lanes, each step counted and
+     gated: F1 two-stage scoring (score_subset=256, rescore_top=128: the bf16
+     score at the subset shape, then the fp32 route at [2048, 128, 1024]),
+     F2 sample_mode="gather", F3 the rescue (3 restarts) on values_pk, F4
+     nn_impl="values_b16" (kernel 2's bf16-cross entry);
+  6d. path G: ransac_pair_step with the adaptive budget (4096 + up to 12288
+     hypotheses) on 256 lanes whose correspondences are shuffled to ~10%
+     inliers: extra chunks run (> 0 required), lanes 0-3 against the CPU
+     with the same extra bits;
+     path H: escalated_register_step on 256 lanes at the stream's settings
+     (8 modes, 4096 + up to 12288 hypotheses, 149 probes a lane with path
+     E's poses as init_T, turned 90 deg about z on the odd lanes so their
+     election must drop the init_T probe), counted, gated, lanes 0-1
+     against the CPU;
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -61,8 +88,9 @@ Phases (any failure exits non-zero and prints no ok line):
  10. one JSON line of per-kernel numbers, a row per kernel and shape, each
      naming its shape (launches: kernels 1, 2 and the bf16 score from the
      fused step's counted call, the fp32 score's two rows and 4-6 from path
-     B's warm call, 7 from path C's counted call; each row also lists its
-     launches on every path), then the ok line, last.
+     B's warm call, 7 from path C's counted call, the approx and bf16-cross
+     rows of kernel 2 from paths E and F4, the rescore row from F1; each
+     row also lists its launches on every path), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -86,6 +114,15 @@ RESCUE_MODES = 6
 VERIFY_ITERS = 8
 # Candidates a lane verifies after the dedup: min(R * modes, modes + 4).
 VERIFY_CANDIDATES = min(RESCUE_RESTARTS * RESCUE_MODES, RESCUE_MODES + 4)
+# Paths E-H: bench.py's two-stage scoring knobs, the stream's escalation
+# (stream.py: 8 modes, 4096 + up to 16384 hypotheses) and the adaptive
+# budget's lanes.
+SUBSET, RESCORE_TOP = 256, 128
+ADAPT_ITERATIONS = 16384
+HARD_LANES = 256
+ESCALATION_MODES = 8
+ALIAS_DEG = 90.0  # path H's odd lanes: init_T turned this far from path E's pose
+KEEP_CORRESPONDENCES = 0.22  # path G: rows that keep their match; the rest shuffled
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
 # bandwidth; fp32 outside the tensor cores, 67 TFLOP/s counting an FMA as two
 # flops, so fp32 instructions (an FMA, an add, a multiply, a subtraction each
@@ -109,9 +146,20 @@ SOURCES = {
     "nn_tiled_wide": ("tpu3dm_torch/csrc/nn_tiled.cu", "tpu3dm/ops/nn.py:169"),
     "nn_blocksparse": ("tpu3dm_torch/csrc/nn_blocksparse.cu", "tpu3dm/ops/nn_sparse.py:199"),
     "lane_nn_wide": ("tpu3dm_torch/csrc/lane_nn.cu", "tpu3dm/ops/nn_lane.py:100"),
+    "lane_mutual_approx": ("tpu3dm_torch/csrc/lane_mutual.cu", "tpu3dm/ops/nn_lane.py:135"),
+    "lane_mutual_bf16_cross": ("tpu3dm_torch/csrc/lane_mutual.cu",
+                               "tpu3dm/ops/nn_lane.py:135"),
+    "ransac_score_rescore": ("tpu3dm_torch/csrc/ransac_score.cu",
+                             "tpu3dm/ops/ransac_score.py:124"),
 }
-# A row that times a kernel at a second shape, and that kernel's name.
-ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score", "nn_tiled_smalld_8192": "nn_tiled_smalld"}
+# A row that times a kernel at a second shape or on other inputs, and that
+# kernel's name.
+ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score", "nn_tiled_smalld_8192": "nn_tiled_smalld",
+              "lane_mutual_approx": "lane_mutual", "ransac_score_rescore": "ransac_score"}
+# The path whose counted call gives a row its launches (other rows: their
+# kernel's path in main's row_path, else the fused path).
+ROW_PATH = {"lane_mutual_approx": "E", "lane_mutual_bf16_cross": "F4",
+            "ransac_score_rescore": "F1"}
 # Rows of the kernels redesigned last, and the time (ms) PERF.md section 6
 # gives the commit before the redesign, on an NVIDIA H100 80GB HBM3 at 700 W.
 # Printed beside the row's own time, never put into the kernels JSON line.
@@ -247,7 +295,7 @@ def main() -> int:
     from tpu3dm_torch.ops import nn_lane, ransac_score
     from tpu3dm_torch.ops.compact import compaction_permutation
     from tpu3dm_torch.parallel.multipair import (
-        draw_sample_bits,
+        draw_bits,
         f32_square,
         ransac_pair_step,
     )
@@ -313,7 +361,7 @@ def main() -> int:
     tgt = {a: padded(1, a) for a in attrs}
     T_true = np.tile(np.stack(trues), (LANES // PAIRS, 1, 1))
     m_s = hyp.sample_row_count(cap, HYPOTHESES)
-    bits = draw_sample_bits(LANES, 1, m_s, torch.Generator().manual_seed(0))
+    bits = draw_bits((LANES, 1, m_s), torch.Generator().manual_seed(0))
     step_kw = dict(
         dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
         ransac_iterations=HYPOTHESES, ransac_batch=HYPOTHESES,
@@ -419,6 +467,47 @@ def main() -> int:
         tm.data_ptr(), idxk.data_ptr(), mutk.data_ptr(), None, b, na, nb), 5)
     del idxk, mutk, idxp, mutp, far, asq, bsq
 
+    # Kernel 2 on the inputs of the other routes: bf16-rounded features with
+    # the fp32 features' norms (approx_features, path E) and the same with
+    # the cross rounded to bf16 (values_b16, path F4).  Every product of
+    # bf16 values is exact in fp32, so the plain version's in-order sum is
+    # the kernel's fmaf chain: picks and masks must be equal.
+    fa16, fb16 = tnn.bf16_round(fa), tnn.bf16_round(fb)
+    far16 = torch.where(tm[..., None], fb16, torch.full_like(fb16, 1e9))
+
+    def mutual_library_bf16():  # cdist on the rounded features
+        d = torch.cdist(fa16, far16)
+        idx = d.argmin(-1)
+        return d.amin(-1) <= torch.gather(d.amin(-2), -1, idx)
+
+    # Work: 35 fp32 instructions an entry as kernel 2; the bf16-cross entry
+    # adds the rounding to bf16 and back (37).
+    for row, cross, ops in (("lane_mutual_approx", False, 35.0),
+                            ("lane_mutual_bf16_cross", True, 37.0)):
+        def call(cross=cross):
+            return nn_lane.nn_mutual_mask_batched(fa, fb, sm, tm, approx=True, cross_bf16=cross)
+
+        def plain(cross=cross):
+            return nn_lane.nn_mutual_lane_plain(fa, fb, sm, tm, approx=True, cross_bf16=cross)
+
+        idxk, mutk = call()
+        idxp, mutp = plain()
+        torch.cuda.synchronize()
+        agree = ((idxk == idxp) & (mutk == mutp))[sm].float().mean().item()
+        if agree < 1.0 or not torch.equal(mutk, mutp):
+            fail(f"{row}: picks and masks equal on {agree:.6%} of valid rows (bit-equal expected)")
+        results[row] = dict(
+            agree=agree, max_abs_err=(pick_d2(idxk) - pick_d2(idxp)).abs()[sm].max().item(),
+            ms=cuda_ms(call, 5), plain_ms=cuda_ms(plain, 1),
+            library_ms=cuda_ms(mutual_library_bf16, 2),
+            bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
+                           (ops * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+            shape=f"{b} lanes x {na} x {nb}, d 33, bf16-rounded features"
+                  + (", cross rounded to bf16" if cross else ""),
+        )
+        del idxk, mutk, idxp, mutp
+    del fa16, fb16, far16
+
     # Kernel 7: the 33-D forward NN per lane (path C's correspondences), on
     # the same jittered, thinned features.
     d2k, idxk = nn_lane.nn_search_lane(fa, fb, sm, tm)
@@ -507,6 +596,8 @@ def main() -> int:
                               ga[..., 3:], gb[..., 3:], gc[..., 3:])
     H, e = hyp.hypothesis_features_planar(R, t)
     F, c = ransac_score.corres_features(p, qa)
+    # Path F1's exact rescore: RESCORE_TOP fp32 hypotheses a lane over every row.
+    H32, e32, F32 = H[:, :RESCORE_TOP].contiguous(), e[:, :RESCORE_TOP].contiguous(), F.contiguous()
     H = H.to(torch.bfloat16).contiguous()
     F = F.to(torch.bfloat16).contiguous()
     c, e, v = c.contiguous(), e.contiguous(), valid.contiguous()
@@ -572,7 +663,9 @@ def main() -> int:
     log(f"kernel ransac_score_bf16: bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); the fp32 "
         f"route on the same values in fp32 tensors{parent_note('ransac_score')}: kernel "
         f"{rf['ms']:.4f} ms, bound {rf['bound'][0]:.4f} ms ({rf['bound'][1]})")
-    del H, e, F, c, v, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
+    del H, e, F, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
+    results["ransac_score_rescore"] = rescore_case(H32, e32, F32, c, v, thr)
+    del H32, e32, F32, c, v
     torch.cuda.empty_cache()
     for name, r in results.items():
         launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
@@ -655,11 +748,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     rescue_launches = rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s)
 
+    # --- 6c-6d. paths E-H: the default route, batch.py's options, the
+    # adaptive budget and the escalation ---------------------------------------
+    torch.cuda.empty_cache()
+    values_launches, T_e = values_paths(src, tgt, T_true, mu, M2, cfg, step_kw, bits)
+    torch.cuda.empty_cache()
+    hard_launches = hard_paths(src, tgt, T_true, mu, M2, cfg, T_e)
+    del T_e
+
     # --- 7-10. the large-cloud path -----------------------------------------
     del src, tgt
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
-    by_path = {"fused": launches, **rescue_launches, **large_launches}
+    by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
+               **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -669,9 +771,10 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         kern = ROW_KERNEL.get(name, name)
+        path = ROW_PATH.get(name, row_path.get(kern, "fused"))
         row = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": by_path[row_path.get(kern, "fused")][kern],
+            "replaces": SOURCES[name][1], "launches": by_path[path][kern],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
@@ -787,7 +890,7 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
     import torch
 
     from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.parallel.multipair import draw_bits
     from tpu3dm_torch.registration.fused import (
         _pn_center,
         correspondences,
@@ -797,8 +900,7 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
     )
 
     R = RESCUE_RESTARTS
-    bits = draw_sample_bits(LANES, R, m_s, torch.Generator().manual_seed(3))
-    bits = bits.reshape(LANES, R, 1, m_s)
+    bits = draw_bits((LANES, R, 1, m_s), torch.Generator().manual_seed(3))
     n_icp_searches = -(-ICP_ITERS // ICP_SOLVES_PER_NN)
 
     def step(mutual, lanes=slice(None), device=None):
@@ -890,6 +992,315 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
     return out
 
 
+def rescore_case(H, e, F, c, v, thr) -> dict:
+    """Kernel 3's fp32 route at path F1's rescore shape (RESCORE_TOP fp32
+    hypotheses a lane over every row), held as fp32_score_case holds it:
+    both counts of every hypothesis inside the FP32_CHAIN_REL float64
+    bracket, >= 99.9% equal, never more than 1 apart."""
+    import torch
+
+    from tpu3dm_torch.ops import ransac_score
+
+    ck = ransac_score.score_features(H, e, F, c, v, thr)
+    cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+    sure, near = ransac_score.score_count_bracket(H, e, F, c, v, thr, ransac_score.FP32_CHAIN_REL)
+    torch.cuda.synchronize()
+    outside = sum(int(((x < sure) | (x > sure + near)).sum()) for x in (ck, cp))
+    diff = (ck - cp).abs()
+    exact = (diff == 0).float().mean().item()
+    if outside or exact < 0.999 or int(diff.max()) > 1:
+        fail(f"ransac_score at the rescore shape: counts equal on {exact:.4%}, max difference "
+             f"{int(diff.max())}, {outside} outside the float64 bracket")
+    b, k, n = H.shape[0], H.shape[1], F.shape[1]
+    nv = float(v.sum())
+    Ft = F.transpose(-1, -2)
+
+    def score_library():
+        d2 = torch.baddbmm(c[:, None, :], H, Ft).add_(e[:, :, None])
+        return d2.masked_fill_(~v[:, None, :], float("inf")).lt_(thr).sum(-1)
+
+    # 19 fp32 instructions per hypothesis x valid row; bytes: H, e and the
+    # counts in full, valid rows of F and c, the mask.
+    r = dict(
+        agree=exact, max_abs_err=float(diff.max()),
+        ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10),
+        plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 2),
+        library_ms=cuda_ms(score_library, 2),
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * n, (19.0 * k * nv, PEAK_FP32_OPS)),
+        shape=f"{b} lanes x K {k} x N {n} ({nv:.0f} valid rows), fp32 H and F (the rescore)",
+    )
+    log(f"kernel ransac_score at the rescore shape: counts equal {exact:.6f}, "
+        f"{int((near > 0).sum())} hypotheses near the threshold, {outside} outside the bracket")
+    return r
+
+
+def counted(label: str, fn, expect: dict) -> tuple:
+    """One call of ``fn`` with the launch counts zeroed just before and read
+    just after; ``expect`` maps a kernel to its count (an int, or a callable
+    that checks the count).  Returns (fn's result, counts, wall s, peak GiB)."""
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: v.launches for k, v in KERNELS.items()}
+    for k, want in expect.items():
+        if not (want(counts[k]) if callable(want) else counts[k] == want):
+            fail(f"{label} launched {counts}, expected {expect} ({k})")
+    return out, counts, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def gate_lanes(label: str, T, T_true, mu, M2) -> str:
+    """Every lane inside bench.py's gate (< 2 deg, RMSE < 0.1); returns the
+    worst lane, for the log."""
+    rot, rmse = fused_gate(T, T_true, mu, M2)
+    if rot.max() >= 2.0 or rmse.max() >= 0.1:
+        fail(f"{label} quality gate: worst lane rot {rot.max():.3f} deg, rmse {rmse.max():.4f}")
+    return f"worst lane rot {rot.max():.4f} deg, rmse {rmse.max():.5f}"
+
+
+def agree_cpu(label: str, T_gpu, T_cpu) -> str:
+    """The card's poses against the CPU run's: rotation < 0.5 deg,
+    translation < 0.02."""
+    rot, t = apart(T_gpu, T_cpu)
+    if rot >= 0.5 or t >= 0.02:
+        fail(f"{label}: GPU and CPU runs differ: rot {rot:.4f} deg, t {t:.4g}")
+    return f"rot {rot:.4f} deg, t {t:.3g}"
+
+
+def values_paths(src, tgt, T_true, mu, M2, cfg, step_kw, bits) -> tuple[dict, object]:
+    """Path E (fused_register_step at bench.py's settings, the default
+    nn_impl) and the four steps of path F over the LANES lanes.  Returns
+    ({path: launch counts}, path E's poses)."""
+    import torch
+
+    from tpu3dm_torch.parallel.multipair import draw_bits, ransac_pair_step
+    from tpu3dm_torch.registration.fused import (
+        _pn_center,
+        correspondences,
+        fused_register_step,
+        icp_polish,
+    )
+
+    attrs = ("points", "features", "mask", "normals")
+    kw_e = {k: v for k, v in step_kw.items() if k != "nn_impl"}  # the default route
+    kw_e["approx_features"] = True
+    n_icp = -(-ICP_ITERS // ICP_SOLVES_PER_NN)
+
+    def step(lanes=slice(None), device=None, bits=bits, **kw):
+        args = [d[a][lanes] for d in (src, tgt) for a in attrs]
+        if device == "cpu":
+            args = [x.cpu() for x in args]
+        return fused_register_step(*args, bits[lanes], device=device, **{**kw_e, **kw})
+
+    def staged():
+        marks = [time.time()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.time())
+
+        fc = _pn_center(tgt["points"], tgt["mask"])
+        sp_ = (src["points"] - fc[:, None]).contiguous()
+        tp_ = (tgt["points"] - fc[:, None]).contiguous()
+        qa, valid = correspondences(src["features"], tgt["features"], src["mask"], tgt["mask"],
+                                    tp_, approx=True)
+        mark()
+        Tr, _ = ransac_pair_step(sp_, qa, valid, bits, dist_thresh=cfg.ransac.dist_thresh,
+                                 iterations=HYPOTHESES, batch_size=HYPOTHESES, approx_score=True)
+        mark()
+        icp_polish(Tr, sp_, src["mask"], tp_, tgt["mask"], tgt["normals"],
+                   icp_thresh=cfg.icp.dist_thresh, icp_iterations=ICP_ITERS,
+                   icp_solves_per_nn=ICP_SOLVES_PER_NN, f16_payload=True)
+        mark()
+        return np.diff(marks) * 1e3
+
+    out = {}
+    step()  # warm-up of this route's eager ops
+    (T_e, fit, rmse), counts, first_s, peak = counted("path E", step, {
+        "lane_mutual": 1, "lane_mutual_bf16_cross": 0, "ransac_score_bf16": 1,
+        "ransac_score": 0, "lane_nn_smalld": n_icp})
+    out["E"] = counts
+    worst = gate_lanes("path E", T_e, T_true, mu, M2)
+    T_cpu, _, _ = step(slice(0, 4), "cpu")
+    ref = agree_cpu("path E lanes 0-3", T_e[:4], T_cpu)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    step_s = float(np.median(times))
+    stages = np.median(np.stack([staged() for _ in range(3)]), axis=0)
+    log(f"path E (default nn_impl values_pk, approx_features, bf16 score, {HYPOTHESES} "
+        f"hypotheses, {ICP_ITERS} ICP iterations / {ICP_SOLVES_PER_NN} solves a search): "
+        f"{LANES} lanes, step {step_s * 1e3:.1f} ms median of 3 -> {LANES / step_s:.1f} pairs/s "
+        f"(counted call {first_s * 1e3:.1f} ms); stages (ms, synchronized, median of 3): "
+        f"correspondences {stages[0]:.1f}, ransac {stages[1]:.1f}, icp {stages[2]:.1f}; peak "
+        f"memory {peak:.2f} GiB; {worst}, fitness min {fit.min().item():.3f}, icp rmse max "
+        f"{rmse.max().item():.4f}; lanes 0-3 vs CPU: {ref}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    profile_report(step, "path E")
+
+    gen = torch.Generator().manual_seed(5)
+    m_s = bits.shape[-1]
+    n_r = RESCUE_RESTARTS
+    cases = (
+        ("F1", "score_subset=256, rescore_top=128",
+         dict(score_subset=SUBSET, rescore_top=RESCORE_TOP), bits,
+         {"lane_mutual": 1, "ransac_score_bf16": 1, "ransac_score": 1, "lane_nn_smalld": n_icp}),
+        ("F2", 'sample_mode="gather"', dict(sample_mode="gather"),
+         draw_bits((LANES, 1, HYPOTHESES, 2), gen),
+         {"lane_mutual": 1, "ransac_score_bf16": 1, "ransac_score": 0, "lane_nn_smalld": n_icp}),
+        ("F3", f"rescue {n_r} restarts x {RESCUE_MODES} modes on values_pk",
+         dict(rescue_restarts=n_r, rescue_modes=RESCUE_MODES, verify_iters=VERIFY_ITERS),
+         draw_bits((LANES, n_r, 1, m_s), gen),
+         {"lane_mutual": 1, "ransac_score_bf16": n_r, "ransac_score": 0,
+          "lane_nn_smalld": VERIFY_ITERS + 1 + n_icp}),
+        ("F4", 'nn_impl="values_b16"', dict(nn_impl="values_b16"), bits,
+         {"lane_mutual": 0, "lane_mutual_bf16_cross": 1, "ransac_score_bf16": 1,
+          "lane_nn_smalld": n_icp}),
+    )
+    for name, what, kw, b_, expect in cases:
+        (T, fit, _), counts, wall, peak = counted(f"path {name}", lambda: step(bits=b_, **kw),
+                                                  expect)
+        out[name] = counts
+        log(f"path {name} ({what}): {LANES} lanes, counted call {wall * 1e3:.1f} ms, peak "
+            f"memory {peak:.2f} GiB; {gate_lanes(f'path {name}', T, T_true, mu, M2)}, fitness "
+            f"min {fit.min().item():.3f}; launches { {k: v for k, v in counts.items() if v} }")
+    return out, T_e
+
+
+def hard_paths(src, tgt, T_true, mu, M2, cfg, T_e) -> dict:
+    """Path G (the adaptive budget on HARD_LANES lanes of shuffled
+    correspondences) and path H (the escalation on HARD_LANES lanes from path
+    E's poses).  Returns {"G": counts, "H": counts}."""
+    import torch
+
+    from tpu3dm_torch.core import se3
+    from tpu3dm_torch.parallel.multipair import (
+        draw_bits,
+        extra_chunk_count,
+        f32_square,
+        ransac_pair_step,
+    )
+    from tpu3dm_torch.registration.fused import (
+        _pn_center,
+        correspondences,
+        escalated_register_step,
+    )
+    from tpu3dm_torch.registration.hypotheses import sample_row_count
+
+    n = HARD_LANES
+    lanes = slice(0, n)
+    dev = src["points"].device
+    cap = src["points"].shape[1]
+    n_extra = extra_chunk_count(HYPOTHESES, ADAPT_ITERATIONS, HYPOTHESES)
+    gen = torch.Generator().manual_seed(6)
+    out = {}
+
+    # --- G: lanes whose correspondences mostly lost their match ---------------
+    fc = _pn_center(tgt["points"][lanes], tgt["mask"][lanes])
+    sp_ = (src["points"][lanes] - fc[:, None]).contiguous()
+    tp_ = (tgt["points"][lanes] - fc[:, None]).contiguous()
+    qa, valid = correspondences(src["features"][lanes], tgt["features"][lanes],
+                                src["mask"][lanes], tgt["mask"][lanes], tp_, approx=True)
+    keep = torch.rand(valid.shape, generator=gen).to(dev) < KEEP_CORRESPONDENCES
+    perm = torch.argsort(torch.rand(valid.shape, generator=gen), dim=1).to(dev)
+    qs = torch.where(keep[..., None], qa, torch.gather(qa, 1, perm[..., None].expand(-1, -1, 3)))
+    T_c = torch.as_tensor(T_true[:n], dtype=torch.float32, device=dev).clone()
+    T_c[:, :3, 3] += torch.einsum("bij,bj->bi", T_c[:, :3, :3], fc) - fc
+    thr = f32_square(cfg.ransac.dist_thresh)
+    inl = (torch.sum((se3.apply(T_c, sp_) - qs) ** 2, -1) < thr) & valid
+    share = inl.sum(-1).float() / valid.sum(-1).clamp_min(1).float()
+    m_s = sample_row_count(cap, HYPOTHESES)
+    bits_g = draw_bits((n, 1, m_s), gen)
+    extra_g = draw_bits((n, n_extra, m_s), gen)
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, iterations=HYPOTHESES, batch_size=HYPOTHESES,
+              approx_score=True, adapt_iterations=ADAPT_ITERATIONS)
+    (Tg, cg), counts, wall, _ = counted("path G", lambda: ransac_pair_step(
+        sp_, qs, valid, bits_g, extra_bits=extra_g, **kw), {"ransac_score_bf16": lambda c: c > 1})
+    out["G"] = counts
+    extras = counts["ransac_score_bf16"] - 1
+    Tc, cc = ransac_pair_step(*(x[:4].cpu() for x in (sp_, qs, valid)), bits_g[:4],
+                              extra_bits=extra_g[:4], **kw)
+    ref = agree_cpu("path G lanes 0-3", Tg[:4], Tc)
+    rot, _ = fused_gate(Tg, T_c.cpu().numpy(), np.zeros((n, 3)), np.zeros((n, 3, 3)))
+    log(f"path G (adaptive budget, {HYPOTHESES} + up to {n_extra} x {HYPOTHESES} hypotheses, "
+        f"{KEEP_CORRESPONDENCES:.0%} of rows keep their match): {n} lanes, inlier share "
+        f"{share.min().item():.3f}-{share.max().item():.3f} (mean {share.mean().item():.3f}); "
+        f"extra chunks run {extras}; counted call {wall * 1e3:.1f} ms; elected support "
+        f"{(cg.float() / valid.sum(-1).float()).min().item():.3f}-"
+        f"{(cg.float() / valid.sum(-1).float()).max().item():.3f}; worst lane rot vs T_true "
+        f"{rot.max():.3f} deg (RANSAC only, no ICP); lanes 0-3 vs CPU: {ref}, counts "
+        f"{cg[:4].tolist()} / {cc.tolist()}; launches { {k: v for k, v in counts.items() if v} }")
+    del sp_, tp_, qa, qs, valid, keep, perm, inl
+
+    # --- H: the escalation at the stream's settings ---------------------------
+    args = [d[a][lanes] for d, names in ((src, ("points", "features", "mask")),
+                                         (tgt, ("points", "features", "mask", "normals")))
+            for a in names]
+    # Odd lanes start from an alias: path E's pose turned ALIAS_DEG about z
+    # through the source centroid.  The gate then holds only if the
+    # election drops the init_T probe for a mode or a screw-lattice probe.
+    w = src["mask"][lanes].float()[..., None]
+    c = (src["points"][lanes] * w).sum(1) / w.sum(1).clamp_min(1.0)
+    a = np.radians(ALIAS_DEG)
+    turn = torch.eye(4, device=dev).repeat(n, 1, 1)
+    turn[:, :2, :2] = torch.tensor([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]],
+                                   dtype=torch.float32, device=dev)
+    turn[:, :3, 3] = c - torch.einsum("bij,bj->bi", turn[:, :3, :3], c)
+    init = T_e[lanes].clone()
+    init[1::2] = init[1::2] @ turn[1::2]
+    bits_h = draw_bits((n, 1, cap), gen)
+    extra_h = draw_bits((n, n_extra, cap), gen)
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=HYPOTHESES, ransac_batch=HYPOTHESES, n_modes=ESCALATION_MODES,
+              adapt_iterations=ADAPT_ITERATIONS, verify_iters=VERIFY_ITERS)
+
+    def escalate(lanes_=slice(None), device=None):
+        a = [x[lanes_] for x in args]
+        if device == "cpu":
+            a = [x.cpu() for x in a]
+        return escalated_register_step(*a, bits_h[lanes_], init[lanes_].to(a[0].device),
+                                       extra_bits=extra_h[lanes_], device=device, **kw)
+
+    # snap, 8 annealed solves and a grading search over every probe; 6
+    # polish solves and a grading search of the winner.
+    n_probes = 1 + ESCALATION_MODES + 5 * ESCALATION_MODES * (ESCALATION_MODES - 1) // 2
+    (T_h, fit, rmse), counts, first_s, peak = counted("path H", escalate, {
+        "lane_mutual": 1, "ransac_score_bf16": lambda c: c >= 1, "ransac_score": 0,
+        "lane_nn_smalld": 1 + VERIFY_ITERS + 1 + 6 + 1})
+    out["H"] = counts
+    worst = gate_lanes("path H", T_h, T_true[:n], mu[:n], M2[:n])
+    from_init, _ = fused_gate(T_h, init.double().cpu().numpy(), mu[:n], M2[:n])
+    if from_init[1::2].min() < ALIAS_DEG / 2:
+        fail(f"path H: an alias lane kept its init_T ({from_init[1::2].min():.3f} deg from it)")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    escalate()
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    T_cpu, _, _ = escalate(slice(0, 2), "cpu")
+    ref = agree_cpu("path H lanes 0-1", T_h[:2], T_cpu)
+    log(f"path H (escalation: {ESCALATION_MODES} modes, {HYPOTHESES} + up to {n_extra} x "
+        f"{HYPOTHESES} hypotheses, {n_probes} probes a lane with init_T path E's pose, turned "
+        f"{ALIAS_DEG:g} deg on odd lanes): {n} lanes, counted call {first_s * 1e3:.1f} ms, "
+        f"second call {warm_s * 1e3:.1f} ms; peak memory {peak:.2f} GiB; {worst}; elected pose "
+        f"from init_T: even lanes max {from_init[0::2].max():.3f} deg, odd (alias) lanes min "
+        f"{from_init[1::2].min():.3f} deg; fitness min {fit.min().item():.3f}, rmse max "
+        f"{rmse.max().item():.4f}; lanes 0-1 vs CPU: {ref}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out
+
+
 def fp32_score_case(sd, td, rc) -> dict:
     """Kernel 3's fp32 route at one lane, as the two-mode RANSAC runs it: the
     first hypothesis chunk of path B's first restart (the generator
@@ -904,19 +1315,19 @@ def fp32_score_case(sd, td, rc) -> dict:
 
     from tpu3dm_torch.ops import ransac_score
     from tpu3dm_torch.ops.compact import compaction_permutation
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits, f32_square
+    from tpu3dm_torch.parallel.multipair import draw_bits, f32_square
     from tpu3dm_torch.registration import hypotheses as hyp
     from tpu3dm_torch.registration.correspondence import feature_correspondences, gather_pairs
-    from tpu3dm_torch.registration.ransac import _sample_distinct_triples, chunk_count
+    from tpu3dm_torch.registration.ransac import chunk_count
 
     pairs, valid = feature_correspondences(sd, td, mutual_filter=rc.mutual_filter)
     p, q = gather_pairs(sd, td, pairs)
     order = compaction_permutation(valid)
     p, q, valid = p[order], q[order], valid[order]
     pq, F, c = hyp.prepare_correspondences(p[None], q[None])
-    bits = draw_sample_bits(chunk_count(rc.max_iterations, rc.batch_size), rc.batch_size, 2,
-                            torch.Generator().manual_seed(0))[0]
-    triples = _sample_distinct_triples(bits.to(p.device), int(valid.sum()))[None]
+    bits = draw_bits((chunk_count(rc.max_iterations, rc.batch_size), rc.batch_size, 2),
+                     torch.Generator().manual_seed(0))[0]
+    triples = hyp.sample_distinct_triples(bits.to(p.device), int(valid.sum()))[None]
     ga, gb, gc = (torch.gather(pq, 1, triples[..., k, None].expand(-1, -1, 6)) for k in range(3))
     R, t, _ = hyp.fit3_frames(ga[..., :3], gb[..., :3], gc[..., :3],
                               ga[..., 3:], gb[..., 3:], gc[..., 3:])
@@ -989,7 +1400,7 @@ def large_phases(dev, results: dict) -> dict:
     from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
     from tpu3dm_torch.registration import large
     from tpu3dm_torch.registration.icp import icp_refine
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.parallel.multipair import draw_bits
     from tpu3dm_torch.registration.ransac import chunk_count
 
     t0 = time.time()
@@ -1206,8 +1617,8 @@ def large_phases(dev, results: dict) -> dict:
     sp, tp, T_small = make_benchmark_pair(AGREE_POINTS, seed=0, sigma=0.002)
     cfg = PipelineConfig.with_voxel_size(0.3)
     n_chunks = chunk_count(cfg.ransac.max_iterations, cfg.ransac.batch_size)
-    bits = torch.stack([draw_sample_bits(n_chunks, cfg.ransac.batch_size, 2,
-                                         torch.Generator().manual_seed(r)) for r in range(4)])
+    bits = torch.stack([draw_bits((n_chunks, cfg.ransac.batch_size, 2),
+                                  torch.Generator().manual_seed(r)) for r in range(4)])
     t0 = time.time()
     fg, _ = large.register_arrays_large(sp, tp, cfg, device=dev, sample_bits=bits)
     torch.cuda.synchronize()

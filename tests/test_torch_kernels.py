@@ -17,7 +17,8 @@ from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
 from tpu3dm_torch.ops import nn as tnn
 from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score
 
-ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "ransac_score", "ransac_score_bf16",
+ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "lane_mutual_bf16_cross", "ransac_score",
+               "ransac_score_bf16",
                "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide"}
 
 
@@ -35,6 +36,7 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     f = torch.rand(1, 8, 33)
     nn_lane.nn_search_lane(f, f)
     nn_lane.nn_mutual_mask_lane(f, f)
+    nn_lane.nn_mutual_mask_batched(f, f, approx=True, cross_bf16=True)
     for dt in (torch.float32, torch.bfloat16):
         ransac_score.score_features(torch.zeros(1, 4, 16, dtype=dt), torch.zeros(1, 4),
                                     torch.zeros(1, 8, 16, dtype=dt), torch.zeros(1, 8),
@@ -352,6 +354,57 @@ FPFH_GRID_CASES = ["grid", "ties", "tile_end", "empty", "ragged", "one_lane", "n
                    "sliced_mask"]
 
 
+MUTUAL_ROUTES = {  # name -> (approx, cross_bf16, kernel)
+    "approx": (True, False, "lane_mutual"),
+    "bf16_cross": (False, True, "lane_mutual_bf16_cross"),
+    "bf16_cross_approx": (True, True, "lane_mutual_bf16_cross"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(MUTUAL_ROUTES))
+def test_lane_mutual_routes_match_plain(cuda_device, route):
+    """Kernel 2 with the options of the fused step's other routes, on
+    FPFH-like features: on bf16-rounded features every product is exact, so
+    the kernel's fmaf chain equals the plain version's in-order sum (picks
+    and masks equal); the fp32 features of "bf16_cross" sum in another order
+    than the plain matmul (>= 99.9% equal)."""
+    approx, cross, name = MUTUAL_ROUTES[route]
+    rng = np.random.default_rng(5)
+    a = torch.tensor(rng.random((3, 300, 33)) ** 2 * 120, dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.random((3, 260, 33)) ** 2 * 120, dtype=torch.float32, device=cuda_device)
+    ma = torch.tensor(rng.random((3, 300)) > 0.1, device=cuda_device)
+    mb = torch.tensor(rng.random((3, 260)) > 0.1, device=cuda_device)
+    before = KERNELS[name].launches
+    idxk, mutk = nn_lane.nn_mutual_mask_batched(a, b, ma, mb, approx=approx, cross_bf16=cross)
+    idxp, mutp = nn_lane.nn_mutual_mask_batched(*(x.cpu() for x in (a, b, ma, mb)),
+                                                approx=approx, cross_bf16=cross)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == before + 1
+    idxk, mutk = idxk.cpu(), mutk.cpu()
+    va = ma.cpu()
+    if approx:
+        assert torch.equal(idxk[va], idxp[va]) and torch.equal(mutk, mutp)
+    else:
+        assert (idxk == idxp)[va].float().mean() >= 0.999
+        assert (mutk == mutp).float().mean() >= 0.999
+    assert mutk.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FPFH_GRID_CASES)
+def test_lane_mutual_bf16_cross_integer_grid_exact(cuda_device, case):
+    """The bf16-cross entry on integer-grid features (every dot exact, then
+    rounded to bf16 alike): equal to the plain version on every row."""
+    a, b, ma, mb = _fpfh_grid_case(case, np.random.default_rng(21))
+    idxk, mutk = nn_lane.nn_mutual_mask_batched(a, b, ma, mb, cross_bf16=True)
+    idxp, mutp = nn_lane.nn_mutual_lane_plain(a, b, ma, mb, cross_bf16=True)
+    torch.cuda.synchronize()
+    va = torch.ones(a.shape[:2], dtype=torch.bool, device=cuda_device) if ma is None else ma
+    assert torch.equal(idxk[va], idxp[va])
+    assert torch.equal(mutk, mutp)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FPFH_GRID_CASES)
 def test_lane_mutual_kernel_integer_grid_exact(cuda_device, case):
@@ -472,12 +525,15 @@ def test_lane_nn_kernels_take_only_their_widths(cuda_device):
 
 
 @pytest.mark.gpu
-def test_fused_register_step_cuda_matches_cpu(cuda_device):
+@pytest.mark.parametrize("nn_impl", ["lane", "values_pk"])
+def test_fused_register_step_cuda_matches_cpu(cuda_device, nn_impl):
     """The whole slice on the card against the plain versions on the CPU,
-    same inputs and sample bits: same poses (rotation within 0.05 deg)."""
+    same inputs and sample bits, on the lane route and the default one
+    (bf16 feature cross, f16 ICP payload): same poses (rotation within
+    0.05 deg)."""
     from tpu3dm_torch.core.config import PipelineConfig
     from tpu3dm_torch.io.synthetic import make_benchmark_pair
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.parallel.multipair import draw_bits
     from tpu3dm_torch.preprocess.pipeline import preprocess_points
     from tpu3dm_torch.registration.fused import fused_register_step
     from tpu3dm_torch.registration.hypotheses import sample_row_count
@@ -489,11 +545,10 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     B, K = 2, 1024
     args = [x[None].expand(B, *x.shape) for c in (s, t)
             for x in (c.points, c.features, c.mask, c.normals)]
-    bits = draw_sample_bits(B, 1, sample_row_count(s.capacity, K),
-                            torch.Generator().manual_seed(1))
+    bits = draw_bits((B, 1, sample_row_count(s.capacity, K)), torch.Generator().manual_seed(1))
     kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
               ransac_iterations=K, ransac_batch=K, icp_iterations=8, icp_solves_per_nn=4,
-              approx_score=True)
+              approx_score=True, approx_features=True, nn_impl=nn_impl)
     before = {n: k.launches for n, k in KERNELS.items()}
     Tg, fg, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, **kw)
     Tc, fc, _ = fused_register_step(*args, bits, device="cpu", **kw)
@@ -501,6 +556,87 @@ def test_fused_register_step_cuda_matches_cpu(cuda_device):
     assert all(KERNELS[n].launches > before[n]
                for n in ("lane_nn_smalld", "lane_mutual", "ransac_score_bf16"))
     assert KERNELS["ransac_score"].launches == before["ransac_score"]  # approx_score: bf16
+    _assert_close_poses(Tg, Tc, T_true)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", ["subset", "gather_adapt", "values_b16_rescue"])
+def test_fused_options_cuda_match_cpu(cuda_device, opts):
+    """The fused step with batch.py's RANSAC options (and the other f16
+    route with the rescue) on the card against the CPU, same bits."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.parallel.multipair import chunk_bits_shape, draw_bits, extra_chunk_count
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.fused import fused_register_step
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    sp, tp, T_true = make_benchmark_pair(8000, seed=3, sigma=0.01)
+    s = preprocess_points(sp, cfg.preprocess, device="cpu").down
+    t = preprocess_points(tp, cfg.preprocess, device="cpu").down
+    B, K = 2, 1024
+    args = [x[None].expand(B, *x.shape) for c in (s, t)
+            for x in (c.points, c.features, c.mask, c.normals)]
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=K, ransac_batch=K, icp_iterations=8, icp_solves_per_nn=4,
+              approx_score=True, approx_features=True)
+    kw.update({"subset": dict(score_subset=256, rescore_top=64),
+               "gather_adapt": dict(sample_mode="gather", adapt_iterations=3 * K),
+               "values_b16_rescue": dict(nn_impl="values_b16", rescue_restarts=2)}[opts])
+    lead = (B, 2) if "rescue_restarts" in kw else (B,)
+    chunk = chunk_bits_shape(s.capacity, K, kw.get("sample_mode", "roll"))
+    gen = torch.Generator().manual_seed(4)
+    bits = draw_bits(lead + (1,) + chunk, gen)
+    n_extra = extra_chunk_count(K, kw.get("adapt_iterations", 0), K)
+    extra = draw_bits(lead + (n_extra,) + chunk, gen) if n_extra else None
+    before = {n: k.launches for n, k in KERNELS.items()}
+    Tg, _, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, extra_bits=extra,
+                                   **kw)
+    Tc, _, _ = fused_register_step(*args, bits, extra_bits=extra, device="cpu", **kw)
+    torch.cuda.synchronize()
+    if opts == "subset":  # the exact rescore is the fp32 route
+        assert KERNELS["ransac_score"].launches == before["ransac_score"] + 1
+    if opts == "values_b16_rescue":
+        assert KERNELS["lane_mutual_bf16_cross"].launches == before["lane_mutual_bf16_cross"] + 1
+    _assert_close_poses(Tg, Tc, T_true)
+
+
+@pytest.mark.gpu
+def test_escalated_register_step_cuda_matches_cpu(cuda_device):
+    """The escalation (4 modes, the adaptive budget, 1 + 4 + 30 probes) on
+    the card against the CPU, same bits and initial poses: T_true on lane
+    0, on lane 1 an alias (T_true turned 90 deg about z through the source
+    centroid) that the election must drop for another probe."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.fused import escalated_register_step
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    sp, tp, T_true = make_benchmark_pair(8000, seed=3, sigma=0.01)
+    s = preprocess_points(sp, cfg.preprocess, device="cpu").down
+    t = preprocess_points(tp, cfg.preprocess, device="cpu").down
+    B, K = 2, 1024
+    args = [x[None].expand(B, *x.shape) for x in (s.points, s.features, s.mask, t.points,
+                                                  t.features, t.mask, t.normals)]
+    gen = torch.Generator().manual_seed(5)
+    bits, extra = draw_bits((B, 1, s.capacity), gen), draw_bits((B, 2, s.capacity), gen)
+    c = s.points[s.mask].mean(0)
+    turn = torch.eye(4)
+    turn[:2, :2] = torch.tensor([[0.0, -1.0], [1.0, 0.0]])
+    turn[:3, 3] = c - turn[:3, :3] @ c
+    T0 = torch.as_tensor(T_true, dtype=torch.float32)
+    init = torch.stack([T0, T0 @ turn])
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=K, ransac_batch=K, n_modes=4, adapt_iterations=3 * K)
+    before = KERNELS["lane_nn_smalld"].launches
+    Tg, _, _ = escalated_register_step(*[a.to(cuda_device) for a in args], bits,
+                                       init.to(cuda_device), extra_bits=extra, **kw)
+    Tc, _, _ = escalated_register_step(*args, bits, init, extra_bits=extra, device="cpu", **kw)
+    torch.cuda.synchronize()
+    # snap + 8 annealed + grading over every probe, 6 polish + grading
+    assert KERNELS["lane_nn_smalld"].launches == before + 1 + 8 + 1 + 6 + 1
     _assert_close_poses(Tg, Tc, T_true)
 
 
@@ -517,13 +653,15 @@ def _assert_close_poses(Tg, Tc, T_true):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nn_impl", ["lane", "values_pk"])
 @pytest.mark.parametrize("mutual", [True, False])
-def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual):
+def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual, nn_impl):
     """One small rescue step (2 restarts, 6 modes, 8 verification solves)
-    on the card against the plain versions on the CPU, same sample bits."""
+    on the card against the plain versions on the CPU, same sample bits,
+    on the lane route and the default one."""
     from tpu3dm_torch.core.config import PipelineConfig
     from tpu3dm_torch.io.synthetic import make_benchmark_pair
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.parallel.multipair import draw_bits
     from tpu3dm_torch.preprocess.pipeline import preprocess_points
     from tpu3dm_torch.registration.fused import fused_register_step
     from tpu3dm_torch.registration.hypotheses import sample_row_count
@@ -535,12 +673,12 @@ def test_fused_rescue_cuda_matches_cpu(cuda_device, mutual):
     B, K, R = 2, 1024, 2
     args = [x[None].expand(B, *x.shape) for c in (s, t)
             for x in (c.points, c.features, c.mask, c.normals)]
-    bits = draw_sample_bits(B, R, sample_row_count(s.capacity, K),
-                            torch.Generator().manual_seed(2)).reshape(B, R, 1, -1)
+    bits = draw_bits((B, R, 1, sample_row_count(s.capacity, K)),
+                     torch.Generator().manual_seed(2))
     kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
               ransac_iterations=K, ransac_batch=K, icp_iterations=8, icp_solves_per_nn=4,
-              approx_score=True, mutual_filter=mutual, rescue_restarts=R, rescue_modes=6,
-              verify_iters=8)
+              approx_score=True, approx_features=True, mutual_filter=mutual,
+              rescue_restarts=R, rescue_modes=6, verify_iters=8, nn_impl=nn_impl)
     before = {n: k.launches for n, k in KERNELS.items()}
     Tg, _, _ = fused_register_step(*[a.to(cuda_device) for a in args], bits, **kw)
     Tc, _, _ = fused_register_step(*args, bits, device="cpu", **kw)
@@ -928,14 +1066,14 @@ def test_register_arrays_large_cuda_matches_cpu(cuda_device):
     from tpu3dm_torch.core.config import PipelineConfig
     from tpu3dm_torch.io.synthetic import make_benchmark_pair
     from tpu3dm_torch.registration.large import register_arrays_large
-    from tpu3dm_torch.parallel.multipair import draw_sample_bits
+    from tpu3dm_torch.parallel.multipair import draw_bits
     from tpu3dm_torch.registration.ransac import chunk_count
 
     cfg = PipelineConfig.with_voxel_size(0.1)  # 8192-capacity clouds: both tiled kernels
     sp, tp, T_true = make_benchmark_pair(60000, seed=2, sigma=0.002)
     k = cfg.ransac.batch_size
-    bits = torch.stack([draw_sample_bits(chunk_count(cfg.ransac.max_iterations, k), k, 2,
-                                        torch.Generator().manual_seed(r)) for r in range(2)])
+    bits = torch.stack([draw_bits((chunk_count(cfg.ransac.max_iterations, k), k, 2),
+                                  torch.Generator().manual_seed(r)) for r in range(2)])
     before = {n: kern.launches for n, kern in KERNELS.items()}
     fg, _ = register_arrays_large(sp, tp, cfg, restarts=2, sample_bits=bits)
     torch.cuda.synchronize()

@@ -40,6 +40,7 @@ from tpu3dm_torch.core.cloud import from_reference_arrays
 from tpu3dm_torch.core.config import PipelineConfig as PConfig
 from tpu3dm_torch.registration import correspondence as pcorr
 from tpu3dm_torch.registration import evaluate as peval
+from tpu3dm_torch.registration import hypotheses as phyp
 from tpu3dm_torch.registration import icp as picp
 from tpu3dm_torch.registration import large as plarge
 from tpu3dm_torch.registration import ransac as pransac
@@ -113,7 +114,7 @@ def test_sample_distinct_triples_equal_jax(n):
     key = jax.random.PRNGKey(n)
     tj = np.asarray(jransac._sample_distinct_triples(key, 2048, jnp.int32(n)))
     bits = torch.from_numpy(np.asarray(jax.random.bits(key, (2048, 2), jnp.uint32)).astype(np.int64))
-    tp = pransac._sample_distinct_triples(bits, n).numpy()
+    tp = phyp.sample_distinct_triples(bits, n).numpy()
     np.testing.assert_array_equal(tp, tj)
     assert (tp >= 0).all() and (tp < n).all()
     if n < 65536:  # distinct unless the product wrapped

@@ -52,7 +52,8 @@ def test_import_needs_no_triton_nvcc_or_gpu():
         "for m in pkgutil.walk_packages(tpu3dm_torch.__path__, 'tpu3dm_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from tpu3dm_torch import csrc\n"
-        "assert set(csrc.KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'ransac_score',\n"
+        "assert set(csrc.KERNELS) == {'lane_nn_smalld', 'lane_mutual', 'lane_mutual_bf16_cross',\n"
+        "                             'ransac_score',\n"
         "                             'ransac_score_bf16',\n"
         "                             'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse',\n"
         "                             'lane_nn_wide'}, csrc.KERNELS\n"
@@ -73,7 +74,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     running on the CPU."""
     from tpu3dm_torch import resolve_device
     from tpu3dm_torch.preprocess.pipeline import preprocess_points
-    from tpu3dm_torch.registration.fused import fused_register_step
+    from tpu3dm_torch.registration.fused import escalated_register_step, fused_register_step
     from tpu3dm_torch.registration.large import prepare_large_cloud, register_arrays_large
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,9 +86,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     f = np.zeros((1, 8, 33), np.float32)
     m = np.ones((1, 8), bool)
     for kw in ({}, {"mutual_filter": False}, {"rescue_restarts": 2},
-               {"mutual_filter": False, "rescue_restarts": 3, "rescue_modes": 2}):
+               {"mutual_filter": False, "rescue_restarts": 3, "rescue_modes": 2},
+               {"nn_impl": "values_b16", "score_subset": 4, "sample_mode": "gather"}):
         with pytest.raises(RuntimeError, match="CUDA"):
             fused_register_step(z3, f, m, z3, z3, f, m, z3, **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        escalated_register_step(z3, f, m, z3, f, m, z3)
     pts = np.random.default_rng(1).normal(size=(600, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         register_arrays_large(pts, pts)

@@ -184,15 +184,24 @@ def test_ransac_pair_step_matches_jax(arch_pair):
         assert (cp.numpy() > 50).all()
 
 
-def test_ransac_pair_step_rejects_unported_modes():
-    """Two-stage scoring, the adaptive budget and the gather sampler are not
-    ported (tests/test_torch_rescue.py holds the two-mode and N-mode steps)."""
-    z = torch.zeros(1, 8, 3)
-    v = torch.ones(1, 8, dtype=torch.bool)
-    for kw in ({"score_subset": 4}, {"adapt_iterations": 99}, {"sample_mode": "gather"},
-               {"two_mode": True, "score_subset": 4}):
-        with pytest.raises(NotImplementedError):
-            p_ransac(z, z, v, dist_thresh=0.45, iterations=16, batch_size=16, **kw)
+@pytest.mark.parametrize("case", ["roll_bits", "gather_bits", "extra_bits", "sample_mode"])
+def test_ransac_pair_step_rejects_unported_modes(case):
+    """Every mode of the JAX step is ported (two-stage scoring, the adaptive
+    budget and the gather sampler: tests/test_torch_ransac_options.py); what
+    the step still rejects is bits of the wrong shape for its sampler, and
+    an unknown sampler."""
+    z = torch.zeros(1, 16, 3)
+    v = torch.ones(1, 16, dtype=torch.bool)
+    bad = {
+        "roll_bits": dict(sample_bits=torch.zeros(1, 1, 15, dtype=torch.int64)),
+        "gather_bits": dict(sample_bits=torch.zeros(1, 1, 16, dtype=torch.int64),
+                            sample_mode="gather"),
+        "extra_bits": dict(adapt_iterations=64,
+                           extra_bits=torch.zeros(1, 2, 16, dtype=torch.int64)),
+        "sample_mode": dict(sample_mode="triples"),
+    }[case]
+    with pytest.raises(ValueError):
+        p_ransac(z, z + 0.1, v, dist_thresh=0.45, iterations=16, batch_size=16, **bad)
 
 
 def _run_both(sd, td, pcs, pct, keys, *, K, approx, shift=None):
@@ -219,7 +228,7 @@ def _run_both(sd, td, pcs, pct, keys, *, K, approx, shift=None):
     outp = pfused.fused_register_step(
         rep(ps), rep(pcs.features), rep(pcs.mask), rep(pcs.normals),
         rep(pt), rep(pct.features), rep(pct.mask), rep(pct.normals),
-        torch.from_numpy(bits), device="cpu", **kw)
+        torch.from_numpy(bits), device="cpu", nn_impl="lane", **kw)
     return [np.asarray(x) for x in outj], [x.numpy() for x in outp]
 
 
@@ -267,14 +276,34 @@ def test_fused_register_step_position_invariant(arch_pair):
     np.testing.assert_allclose(fs, f0, atol=0.02)
 
 
-def test_fused_register_step_rejects_unported_options():
-    """Only nn_impl="lane" is ported, with or without the mutual filter and
-    the rescue (tests/test_torch_rescue.py)."""
-    z3 = np.zeros((1, 8, 3), np.float32)
-    f = np.zeros((1, 8, 33), np.float32)
-    m = np.ones((1, 8), bool)
+@pytest.mark.parametrize("case", ["gather_bits", "rescue_extra_bits", "rescue_sample_bits",
+                                  "mesh"])
+def test_fused_register_step_rejects_unported_options(case):
+    """Every nn_impl and RANSAC option of the JAX step is ported
+    (tests/test_torch_values_route.py, test_torch_rescue.py); the step
+    rejects bits of the wrong shape for its sampler, for the rescue's
+    restarts (no restart axis) or for their extra chunks, and the large
+    path its unported sharded refinement."""
+    z3 = np.zeros((1, 16, 3), np.float32)
+    f = np.zeros((1, 16, 33), np.float32)
+    m = np.ones((1, 16), bool)
     args = (z3, f, m, z3, z3, f, m, z3)
-    for kw in ({"nn_impl": "values_pk"}, {"nn_impl": "dense", "rescue_restarts": 2},
-               {"nn_impl": "values", "mutual_filter": False}):
+    kw = dict(ransac_iterations=16, ransac_batch=16, device="cpu")
+    if case == "gather_bits":
+        with pytest.raises(ValueError):
+            pfused.fused_register_step(*args, torch.zeros(1, 1, 16, dtype=torch.int64),
+                                       sample_mode="gather", **kw)
+    elif case == "rescue_extra_bits":
+        with pytest.raises(ValueError):
+            pfused.fused_register_step(*args, rescue_restarts=2, adapt_iterations=64,
+                                       extra_bits=torch.zeros(1, 3, 16, dtype=torch.int64), **kw)
+    elif case == "rescue_sample_bits":
+        with pytest.raises(ValueError):
+            pfused.fused_register_step(*args, torch.zeros(1, 1, 16, dtype=torch.int64),
+                                       rescue_restarts=2, **kw)
+    else:
+        from tpu3dm_torch.registration.large import register_arrays_large
+
+        pts = np.zeros((64, 3), np.float32)
         with pytest.raises(NotImplementedError):
-            pfused.fused_register_step(*args, device="cpu", **kw)
+            register_arrays_large(pts, pts, mesh=object(), device="cpu")

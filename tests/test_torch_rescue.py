@@ -152,7 +152,7 @@ def _run_both(arch_pair, keys, **opts):
     outp = pfused.fused_register_step(
         rep(pcs.points), rep(pcs.features), rep(pcs.mask), rep(pcs.normals),
         rep(pct.points), rep(pct.features), rep(pct.mask), rep(pct.normals),
-        bits, device="cpu", **kw)
+        bits, device="cpu", nn_impl="lane", **kw)
     return [np.asarray(x) for x in outj], [x.numpy() for x in outp]
 
 

@@ -1,8 +1,9 @@
 """SE(3) rigid-transform utilities, batched (port of tpu3dm/core/se3.py).
 
 Transforms are ``[..., 4, 4]`` tensors; twists ``xi`` are ``[..., 6]`` in the
-JAX package's order ``[rho(3), w(3)]``.  The exp maps keep the reference's
-small-angle series branches, as elementwise selects.
+JAX package's order ``[rho(3), w(3)]``.  The exp and log maps keep the
+reference's small-angle (and, for ``log_so3``, near-pi) branches, as
+elementwise selects.
 """
 
 from __future__ import annotations
@@ -77,3 +78,43 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     out[..., :3, 3] = torch.einsum("...ij,...j->...i", V, rho)
     out[..., 3, 3] = 1.0
     return out
+
+
+def log_so3(R: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``exp_so3``: ``[..., 3, 3] -> [..., 3]``, with the JAX
+    package's branches as elementwise selects: the series 0.5 + theta^2 / 12
+    below theta = 1e-4, and within 1e-3 of pi the axis from the largest
+    diagonal column of R + I (R + I = 2 n n^T at pi)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+    v = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    scale = torch.where(theta < 1e-4, 0.5 + theta * theta / 12.0,
+                        theta / (2.0 * torch.sin(theta) + _EPS))
+    w_generic = scale[..., None] * v
+    S = R + torch.eye(3, dtype=R.dtype, device=R.device)
+    diag = torch.stack([S[..., 0, 0], S[..., 1, 1], S[..., 2, 2]], dim=-1)
+    k = torch.argmax(diag, dim=-1)
+    col = torch.gather(S, -1, k[..., None, None].expand(S.shape[:-1] + (1,)))[..., 0]
+    n_pi = col / (torch.linalg.vector_norm(col, dim=-1, keepdim=True) + _EPS)
+    near_pi = (torch.pi - theta < 1e-3)[..., None]
+    return torch.where(near_pi, theta[..., None] * n_pi, w_generic)
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``exp_se3``: ``[..., 4, 4] -> [rho(3), w(3)]``, with
+    V^-1 = I - W / 2 + (1 - A / (2 B)) / theta^2 W^2 (1/12 below theta^2 =
+    1e-8)."""
+    t = T[..., :3, 3]
+    w = log_so3(T[..., :3, :3])
+    theta2 = torch.sum(w * w, dim=-1)
+    A, B, _ = _coeffs(theta2)
+    small = theta2 < 1e-8
+    W = hat(w)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    coef = torch.where(small, 1.0 / 12.0, (1.0 - A / (2.0 * B + _EPS)) / (theta2 + _EPS))
+    Vinv = eye - 0.5 * W + coef[..., None, None] * (W @ W)
+    rho = torch.einsum("...ij,...j->...i", Vinv, t)
+    return torch.cat([rho, w], dim=-1)

@@ -12,6 +12,18 @@
 // of the lane; a masked row gets idx 0 and mutual false.  Always fp32, as
 // the TPU kernel is.
 //
+// Two more routes of the same kernel serve the JAX package's XLA
+// correspondence searches of registration/fused.py (ops/nn.py:
+// nn_mutual_mask and nn_mutual_vals, which no Pallas kernel computes):
+//   - approx (bf16 feature inputs, fp32 accumulation): the wrapper passes
+//     bf16-rounded features in fp32 tensors and the norms of the unrounded
+//     ones.  A product of two bf16 values is exact in fp32, so the fmaf
+//     chain is that dot, summed in this kernel's order;
+//   - t3t_lane_mutual_bf16_cross (nn_impl="values_b16": the cross stored as
+//     bf16): the dot is rounded to bf16 (to nearest even) before its
+//     fmaf(-2, ., asq + bsq).  Doubling a bf16 value is exact, so the entry
+//     is (asq + bsq) - 2 bf16(dot) with one rounding, as JAX computes it.
+//
 // The TPU kernel gets global column minima by keeping a whole lane resident
 // in VMEM.  Here one block owns one lane, so its column minima are exact
 // without a second pass or global atomics:
@@ -46,6 +58,7 @@
 // where two passes over every entry would compute ~4x.  An entry costs its
 // 35 instructions, two minima and 1/16 of a shared load.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -67,9 +80,15 @@ __host__ __device__ constexpr size_t smem_bytes(size_t words) {
   return 4 * (3 * static_cast<size_t>(kTileFloats + kTile) + words);
 }
 
+// A dot as the bf16 cross stores it: rounded to bf16, to nearest even.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // kScratch: the lists live in scratch [B, list_words] in device memory
 // (lanes whose lists do not fit in shared memory), else in shared memory.
-template <bool kScratch>
+// kCrossBf16: round each dot to bf16 before its entry is formed.
+template <bool kScratch, bool kCrossBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    const float* __restrict__ asq, const float* __restrict__ bsq,
@@ -138,7 +157,10 @@ lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
       for (int r = 0; r < 8; ++r) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(-2.0f, acc[r][c], __fadd_rn(qn[r], tn[c]));
+        for (int c = 0; c < 8; ++c) {
+          const float dot = kCrossBf16 ? bf16_round(acc[r][c]) : acc[r][c];
+          acc[r][c] = __fmaf_rn(-2.0f, dot, __fadd_rn(qn[r], tn[c]));
+        }
         row_update(acc[r], tx, first, best[r], best_j[r]);
       }
 #pragma unroll
@@ -169,6 +191,31 @@ lane_mutual_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// The host side of both entry points: kCrossBf16 picks the route.
+template <bool kCrossBf16>
+int launch_mutual(const float* a, const float* b, const float* asq, const float* bsq,
+                  const unsigned char* mask_a, const unsigned char* mask_b, int* idx,
+                  unsigned char* mutual, int* scratch, int B, int Na, int Nb,
+                  cudaStream_t stream) {
+  if (B <= 0 || Na <= 0 || Nb <= 0) return static_cast<int>(cudaSuccess);
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(scratch == nullptr ? list_words(Na, Nb) : 0);
+  if (smem + 64 > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = scratch == nullptr ? lane_mutual_kernel<false, kCrossBf16>
+                                   : lane_mutual_kernel<true, kCrossBf16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, kThreads, smem, stream>>>(a, b, asq, bsq, mask_a, mask_b, idx, mutual, scratch, Na,
+                                        Nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a [B, Na, 33], b [B, Nb, 33], asq [B, Na], bsq [B, Nb] float32, contiguous,
@@ -183,20 +230,16 @@ extern "C" int t3t_lane_mutual(const float* a, const float* b, const float* asq,
                                const unsigned char* mask_a, const unsigned char* mask_b, int* idx,
                                unsigned char* mutual, int* scratch, int B, int Na, int Nb,
                                cudaStream_t stream) {
-  if (B <= 0 || Na <= 0 || Nb <= 0) return static_cast<int>(cudaSuccess);
-  int device = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(scratch == nullptr ? list_words(Na, Nb) : 0);
-  if (smem + 64 > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = scratch == nullptr ? lane_mutual_kernel<false> : lane_mutual_kernel<true>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kThreads, smem, stream>>>(a, b, asq, bsq, mask_a, mask_b, idx, mutual, scratch, Na,
-                                        Nb);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mutual<false>(a, b, asq, bsq, mask_a, mask_b, idx, mutual, scratch, B, Na, Nb,
+                              stream);
+}
+
+// The same contract, each dot rounded to bf16 before its entry is formed.
+extern "C" int t3t_lane_mutual_bf16_cross(const float* a, const float* b, const float* asq,
+                                          const float* bsq, const unsigned char* mask_a,
+                                          const unsigned char* mask_b, int* idx,
+                                          unsigned char* mutual, int* scratch, int B, int Na,
+                                          int Nb, cudaStream_t stream) {
+  return launch_mutual<true>(a, b, asq, bsq, mask_a, mask_b, idx, mutual, scratch, B, Na, Nb,
+                             stream);
 }

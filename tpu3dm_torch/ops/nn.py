@@ -227,23 +227,53 @@ def nn_mutual(
     return idx_fwd, idx_bwd
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even, as XLA converts) and back to fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _dot_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., Na, Nb] dots of a [..., Na, d] and b [..., Nb, d], summed from 0
+    over k = 0 .. d-1 in order: each step one product and one rounded add.
+    Where every product is exact in fp32 (bf16 inputs) this is the fmaf
+    chain of csrc/fpfh_tile.cuh, bit for bit."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-2:-1], dtype=torch.float32, device=a.device)
+    for k in range(a.shape[-1]):
+        acc += a[..., :, None, k] * b[..., None, :, k]
+    return acc
+
+
 def nn_mutual_mask(
     a: torch.Tensor,
     b: torch.Tensor,
     mask_a: torch.Tensor | None = None,
     mask_b: torch.Tensor | None = None,
+    *,
+    approx: bool = False,
+    cross_bf16: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward NN + mutuality mask from ONE distance matrix, min-only (fp32).
+    """Forward NN + mutuality mask from ONE distance matrix, min-only.
 
-    Row i is mutual iff its best distance is the best anyone achieves to its
-    chosen column: d2[i, idx[i]] <= colmin[idx[i]].  On exact distance ties
-    every tying row passes.
+    d2 = (|a|^2 + |b|^2) - 2 cross, the norms from the fp32 features (BIG at
+    masked rows).  Row i is mutual iff its best distance is the best anyone
+    achieves to its chosen column: d2[i, idx[i]] <= colmin[idx[i]].  On
+    exact distance ties every tying row passes.
+
+    approx: the cross of bf16-rounded features with fp32 accumulation (the
+      JAX package's bf16 dot), summed in order over the features.
+    cross_bf16: round the cross to bf16 before the distance is formed
+      (JAX's ``nn_mutual_vals(cross_dtype=bf16)``).
 
     Returns (idx_fwd [..., Na] int32, mutual [..., Na] bool).
     """
     asq = _sq_norms(a, mask_a)
     bsq = _sq_norms(b, mask_b)
-    cross = a @ b.transpose(-1, -2)
+    if approx:
+        cross = _dot_in_order(bf16_round(a), bf16_round(b))
+    else:
+        cross = a @ b.transpose(-1, -2)
+    if cross_bf16:
+        cross = bf16_round(cross)
     d2 = asq[..., :, None] + bsq[..., None, :] - 2.0 * cross
     idx = torch.argmin(d2, dim=-1)
     dmin = torch.amin(d2, dim=-1)

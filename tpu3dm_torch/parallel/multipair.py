@@ -3,10 +3,10 @@
 ``ransac_pair_step`` is the JAX single-pair step with the pair dimension
 written out: every tensor carries a leading [B] lane axis, the hypothesis
 chunks run as a Python loop, and the sample bits come from the caller or a
-``torch.Generator`` in place of a ``jax.random`` key.  It runs single-mode,
-two-mode (the leader and the best rotation-far hypothesis) and N-mode
-(``n_modes`` rotation-separated support peaks), as the batched alias rescue
-of registration/fused.py needs.
+``torch.Generator`` in place of a ``jax.random`` key.  It runs single-mode
+(optionally with two-stage scoring), two-mode (the leader and the best
+rotation-far hypothesis) and N-mode (``n_modes`` rotation-separated support
+peaks), with the roll or the gather sampler and the adaptive budget.
 """
 
 from __future__ import annotations
@@ -19,11 +19,18 @@ from tpu3dm_torch.ops.ransac_score import corres_features
 from tpu3dm_torch.registration.hypotheses import (
     fit_score_gathers,
     refit_inliers,
+    rescore_rows,
     rolled_sample_gathers,
     rot_cos_planar,
+    sample_distinct_triples,
+    sample_fit_score,
     sample_row_count,
     winner_T,
 )
+
+# The adaptive budget's extra chunks draw from fold_in(key, EXTRA_KEY_SALT)
+# in JAX, a stream disjoint from the fixed chunks'.
+EXTRA_KEY_SALT = 0x5F5E
 
 
 def f32_square(x: float) -> float:
@@ -32,14 +39,37 @@ def f32_square(x: float) -> float:
     return float(np.float32(x) * np.float32(x))
 
 
-def draw_sample_bits(
-    n_lanes: int, n_chunks: int, m_s: int, generator: torch.Generator | None = None
-) -> torch.Tensor:
-    """[n_lanes, n_chunks, m_s] int64 holding uniform uint32 values, drawn on
-    the CPU from ``generator`` (torch's default generator when None).  The
-    two-mode RANSAC draws its [n_chunks, K, 2] bits the same way."""
-    return torch.randint(0, 1 << 32, (n_lanes, n_chunks, m_s), generator=generator,
-                         dtype=torch.int64)
+def draw_bits(shape: tuple[int, ...], generator: torch.Generator | None = None) -> torch.Tensor:
+    """int64 tensor of ``shape`` holding uniform uint32 values, drawn on the
+    CPU from ``generator`` (torch's default generator when None)."""
+    return torch.randint(0, 1 << 32, shape, generator=generator, dtype=torch.int64)
+
+
+def chunk_bits_shape(m: int, batch_size: int, sample_mode: str = "roll",
+                     sample_rows: int = 0) -> tuple[int, ...]:
+    """The bits one hypothesis chunk takes: (m_s,) for the roll sampler
+    (JAX: ``jax.random.bits(k_chunk, (m_s,))``, m_s = ``sample_row_count``),
+    (batch_size, 2) for the gather sampler (``bits(k_chunk, (K, 2))``)."""
+    if sample_mode == "roll":
+        return (sample_row_count(m, batch_size, sample_rows),)
+    if sample_mode == "gather":
+        return (batch_size, 2)
+    raise ValueError(f"sample_mode must be 'roll' or 'gather', got {sample_mode!r}")
+
+
+def extra_chunk_count(iterations: int, adapt_iterations: int, batch_size: int) -> int:
+    """The most chunks the adaptive budget adds: ceil((adapt_iterations -
+    iterations) / batch_size), 0 when adapt_iterations <= iterations."""
+    return max(0, -(-(adapt_iterations - iterations) // batch_size))
+
+
+def checked_bits(name: str, bits, shape: tuple[int, ...], generator, device) -> torch.Tensor:
+    """``bits`` of ``shape`` on ``device`` (drawn from ``generator`` when None)."""
+    if bits is None:
+        bits = draw_bits(shape, generator)
+    if tuple(bits.shape) != shape:
+        raise ValueError(f"{name} must be {list(shape)}, got {list(bits.shape)}")
+    return bits.to(device=device, dtype=torch.int64)
 
 
 def f32_cos_deg(deg: float) -> float:
@@ -113,25 +143,44 @@ def ransac_pair_step(
     iterations: int,
     batch_size: int,
     edge_length_ratio: float = 0.9,
+    refit: bool = True,
     approx_score: bool = False,
     two_mode: bool = False,
     mode_angle_deg: float = 15.0,
-    n_modes: int = 2,
     score_subset: int = 0,
+    rescore_top: int = 128,
     sample_mode: str = "roll",
+    sample_rows: int = 0,
     adapt_iterations: int = 0,
+    confidence: float = 0.999,
+    n_modes: int = 2,
+    extra_bits: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed-budget RANSAC per pair lane, with the exact refit.
 
     Args:
       p_all, q_all: [B, M, 3] correspondence points; valid: [B, M] bool.
-      sample_bits: [B, n_chunks, m_s] int64 of uint32 values (JAX draws them
-        as ``jax.random.bits(split(key, n_chunks)[i], (m_s,))`` with
-        m_s = ``sample_row_count(M, batch_size)``); drawn from
-        ``generator`` when None.
+      sample_bits: [B, n_chunks, *chunk] int64 of uint32 values, chunk =
+        ``chunk_bits_shape``: (m_s,) for ``sample_mode="roll"`` (JAX draws
+        ``jax.random.bits(split(key, n_chunks)[i], (m_s,))``), (K, 2) for
+        ``"gather"`` (``bits(k_i, (K, 2))``); drawn from ``generator`` when
+        None.  ``sample_rows`` sets m_s (``sample_row_count``).
       two_mode: also track the best hypothesis whose rotation is more than
         ``mode_angle_deg`` from the leader (``n_modes == 2``), or the
         ``n_modes`` best rotation-separated support peaks (``n_modes > 2``).
+      score_subset, rescore_top: single mode with 0 < S < M scores on the
+        stride subset F[::max(1, M // S)][:S], rescores the top
+        min(rescore_top, K) of each chunk exactly over all M (fp32) and
+        elects on the exact counts.
+      adapt_iterations > iterations: after the fixed chunks, lanes whose
+        support w = count / n_valid leaves log(1 - confidence) /
+        log(1 - w^3) above the hypotheses run so far take extra chunks, up
+        to ``extra_chunk_count``; a lane that is done keeps its carry, so
+        its j-th extra chunk draws ``extra_bits[:, j]``
+        ([B, max_extra, *chunk]; JAX: the j-th ``split`` of
+        ``fold_in(key, 0x5F5E)``), drawn from ``generator`` when None.
+        The loop syncs with the host once an extra chunk.
+      refit: re-fit each elected mode on its inliers (exact Horn).
 
     Both clouds are shifted to the valid-correspondence centroid before the
     hypothesis work (the precondition of ``approx_score``); every returned
@@ -140,16 +189,18 @@ def ransac_pair_step(
     Returns (T [B, 4, 4], count [B] int32), or with ``two_mode``
     (Ts [B, n_modes, 4, 4], counts [B, n_modes]), the leader first.
     """
-    if score_subset > 0:
-        raise NotImplementedError("ransac_pair_step: score_subset > 0 is not ported")
-    if adapt_iterations > iterations:
-        raise NotImplementedError("ransac_pair_step: the adaptive budget is not ported")
-    if sample_mode != "roll":
-        raise NotImplementedError("ransac_pair_step: only sample_mode='roll' is ported")
-
     b, m = valid.shape
+    dev = valid.device
     thresh_sq = f32_square(dist_thresh)
-    rank_to_idx = compaction_permutation(valid)
+    if sample_mode == "roll":
+        rank_to_idx = compaction_permutation(valid)
+    else:
+        # The gather sampler draws ranks among the compacted valid rows.
+        order = compaction_permutation(valid).to(torch.int64)
+        p_all = torch.gather(p_all, 1, order[..., None].expand(-1, -1, 3))
+        q_all = torch.gather(q_all, 1, order[..., None].expand(-1, -1, 3))
+        valid = torch.gather(valid, 1, order)
+        rank_to_idx = None
     n_valid = torch.sum(valid, dim=-1)
     w = valid.to(torch.float32)[..., None]
     denom = torch.clamp_min(torch.sum(w, dim=-2), 1.0)
@@ -160,22 +211,29 @@ def ransac_pair_step(
     pq = torch.cat([p_all, q_all], dim=-1)
     F, c = corres_features(p_all, q_all)
 
-    m_s = sample_row_count(m, batch_size)
-    if sample_bits is None:
-        sample_bits = draw_sample_bits(b, n_chunks, m_s, generator)
-    if tuple(sample_bits.shape) != (b, n_chunks, m_s):
-        raise ValueError(f"sample_bits must be [{b}, {n_chunks}, {m_s}], "
-                         f"got {tuple(sample_bits.shape)}")
-    sample_bits = sample_bits.to(device=valid.device, dtype=torch.int64)
+    use_subset = not two_mode and 0 < score_subset < m
+    Fx, cx, vx = F, c, valid
+    if use_subset:
+        stride = max(1, m // score_subset)
+        Fx, cx, vx = (x[:, ::stride][:, :score_subset].contiguous() for x in (F, c, valid))
+        n_top = min(rescore_top, batch_size)
 
-    def fit_chunk(ch):
-        ga, gb, gc = rolled_sample_gathers(
-            sample_bits[:, ch], pq, n_valid, batch_size, rank_to_idx=rank_to_idx
-        )
-        return fit_score_gathers(
-            ga, gb, gc, F, c, valid, thresh_sq,
-            edge_length_ratio=edge_length_ratio, approx_score=approx_score,
-        )
+    chunk = chunk_bits_shape(m, batch_size, sample_mode, sample_rows)
+    sample_bits = checked_bits("sample_bits", sample_bits, (b, n_chunks) + chunk, generator, dev)
+    max_extra = extra_chunk_count(iterations, adapt_iterations, batch_size)
+    if max_extra > 0:
+        extra_bits = checked_bits("extra_bits", extra_bits, (b, max_extra) + chunk, generator,
+                                   dev)
+
+    def fit_chunk(bits):
+        kw = dict(edge_length_ratio=edge_length_ratio, approx_score=approx_score,
+                  return_features=use_subset)
+        if sample_mode == "roll":
+            ga, gb, gc = rolled_sample_gathers(bits, pq, n_valid, batch_size,
+                                               rank_to_idx=rank_to_idx)
+            return fit_score_gathers(ga, gb, gc, Fx, cx, vx, thresh_sq, **kw)
+        triples = sample_distinct_triples(bits, n_valid)
+        return sample_fit_score(pq, Fx, cx, vx, triples, thresh_sq, **kw)
 
     def finalize(T, count):
         """Refit on the inliers and un-shift: T [B, 4, 4], or [B, n, 4, 4]
@@ -187,45 +245,87 @@ def ransac_pair_step(
         def per_mode(x):
             return x.reshape(one + x.shape[1:]).expand(lead + x.shape[1:])
 
-        T, count = refit_inliers(T, torch.clamp_min(count, 0), per_mode(p_all), per_mode(q_all),
-                                 per_mode(valid), thresh_sq)
+        count = torch.clamp_min(count, 0)
+        if refit:
+            T, count = refit_inliers(T, count, per_mode(p_all), per_mode(q_all),
+                                     per_mode(valid), thresh_sq)
         # T_world = Shift(c0) . T_centered . Shift(-c0).
         c = c0.reshape(one + (3,))
         T = T.clone()
         T[..., :3, 3] = T[..., :3, 3] + c - torch.einsum("...ij,...j->...i", T[..., :3, :3], c)
         return T, count
 
-    eye = torch.eye(4, dtype=torch.float32, device=valid.device).repeat(b, 1, 1)
-    none = torch.full((b,), -1, dtype=torch.int32, device=valid.device)
-    if not two_mode:
-        best_T, best_count = eye, none
+    def run(chunk_fn, carry, count_of):
+        """The fixed chunks, then the adaptive extension (JAX's ``extend``)."""
         for ch in range(n_chunks):
-            R, t, counts = fit_chunk(ch)
-            k = torch.argmax(counts, dim=-1)
-            cand = _at(counts, k)
+            carry = chunk_fn(carry, sample_bits[:, ch])
+        if max_extra == 0:
+            return carry
+        log1mc = np.float32(np.log(max(1.0 - confidence, 1e-12)))
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        for j in range(max_extra):
+            # N = log(1-c) / log(1-w^3) in fp32, +inf at w = 0 (run to the cap).
+            wv = torch.clamp(count_of(carry).to(torch.float32)
+                             / torch.clamp_min(n_valid.to(torch.float32), 1.0), 0.0, 1.0)
+            w3 = torch.clamp(wv * wv * wv, 0.0, 0.999999)
+            needed = torch.full_like(w3, log1mc) / torch.clamp_max(torch.log1p(-w3), -1e-12)
+            done_h = np.float32(iterations) + np.float32(j) * np.float32(batch_size)
+            active = active & (float(done_h) < needed)
+            if not bool(torch.any(active)):
+                break
+            new = chunk_fn(carry, extra_bits[:, j])
+            carry = tuple(torch.where(active.reshape((b,) + (1,) * (x.ndim - 1)), x_new, x)
+                          for x_new, x in zip(new, carry))
+        return carry
+
+    eye = torch.eye(4, dtype=torch.float32, device=dev).repeat(b, 1, 1)
+    none = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    if not two_mode:
+        def chunk1(carry, bits):
+            best_T, best_count = carry
+            if use_subset:
+                R, t, counts, H, e = fit_chunk(bits)
+                # Stage 2: exact rescore of the subset top-n_top over every
+                # correspondence.  A stable descending sort keeps ties in
+                # index order, as lax.top_k does; -1 (checker failures)
+                # stays -1.
+                top_c, top_i = torch.sort(counts, dim=-1, descending=True, stable=True)
+                top_c, top_i = top_c[:, :n_top], top_i[:, :n_top]
+                H_top = torch.gather(H, 1, top_i[..., None].expand(-1, -1, H.shape[-1]))
+                exact = rescore_rows(H_top, torch.gather(e, 1, top_i), F, c, valid, thresh_sq)
+                exact = torch.where(top_c < 0, -1, exact)
+                j = torch.argmax(exact, dim=-1)
+                k, cand = _at(top_i, j), _at(exact, j)
+            else:
+                R, t, counts = fit_chunk(bits)
+                k = torch.argmax(counts, dim=-1)
+                cand = _at(counts, k)
             better = cand > best_count
-            best_T = _where_T(better, winner_T(R, t, k), best_T)
-            best_count = torch.where(better, cand, best_count)
-        return finalize(best_T, best_count)
+            return (_where_T(better, winner_T(R, t, k), best_T),
+                    torch.where(better, cand, best_count))
+
+        return finalize(*run(chunk1, (eye, none), lambda cr: cr[1]))
 
     cos_thr = f32_cos_deg(mode_angle_deg)
     if n_modes > 2:
-        Ts = eye[:, None].repeat(1, n_modes, 1, 1)
-        cs = none[:, None].repeat(1, n_modes)
-        for ch in range(n_chunks):
-            newT, newc = _peaks(*fit_chunk(ch), n_modes, cos_thr)
-            Ts, cs = _reselect(torch.cat([Ts, newT], 1), torch.cat([cs, newc], 1),
-                               n_modes, cos_thr)
-    else:
-        T1, c1, T2, c2 = eye, none, eye, none
-        for ch in range(n_chunks):
-            R, t, counts = fit_chunk(ch)
-            ka = torch.argmax(counts, dim=-1)
-            Ta, ca = winner_T(R, t, ka), _at(counts, ka)
-            far = torch.where(rot_cos_planar(Ta, R) < cos_thr, counts, -1)
-            kb = torch.argmax(far, dim=-1)
-            Tb, cb = winner_T(R, t, kb), _at(far, kb)
-            T1, c1, T2, c2 = _merge(T1, c1, T2, c2, Ta, ca, cos_thr)
-            T1, c1, T2, c2 = _merge(T1, c1, T2, c2, Tb, cb, cos_thr)
-        Ts, cs = torch.stack([T1, T2], 1), torch.stack([c1, c2], 1)
-    return finalize(Ts, cs)
+        def chunk_n(carry, bits):
+            Ts, cs = carry
+            newT, newc = _peaks(*fit_chunk(bits), n_modes, cos_thr)
+            return _reselect(torch.cat([Ts, newT], 1), torch.cat([cs, newc], 1), n_modes, cos_thr)
+
+        carry = (eye[:, None].repeat(1, n_modes, 1, 1), none[:, None].repeat(1, n_modes))
+        return finalize(*run(chunk_n, carry, lambda cr: cr[1][:, 0]))
+
+    def chunk2(carry, bits):
+        T1, c1, T2, c2 = carry
+        R, t, counts = fit_chunk(bits)
+        ka = torch.argmax(counts, dim=-1)
+        Ta, ca = winner_T(R, t, ka), _at(counts, ka)
+        far = torch.where(rot_cos_planar(Ta, R) < cos_thr, counts, -1)
+        kb = torch.argmax(far, dim=-1)
+        Tb, cb = winner_T(R, t, kb), _at(far, kb)
+        T1, c1, T2, c2 = _merge(T1, c1, T2, c2, Ta, ca, cos_thr)
+        return _merge(T1, c1, T2, c2, Tb, cb, cos_thr)
+
+    T1, c1, T2, c2 = run(chunk2, (eye, none, eye, none), lambda cr: cr[1])
+    return finalize(torch.stack([T1, T2], 1), torch.stack([c1, c2], 1))

@@ -21,6 +21,8 @@ from tpu3dm_torch.registration.kabsch import fit_rigid_horn
 PlanarR = tuple[tuple[torch.Tensor, ...], ...]
 PlanarT = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+U32 = (1 << 32) - 1
+
 # Static offset pairs of the roll sampler: rep r pairs (S[j], S[j+s1], S[j+s2]).
 _ROLL_OFFSETS = ((1, 2), (3, 7), (11, 23), (41, 87), (5, 13), (17, 37), (29, 61), (53, 109))
 
@@ -125,19 +127,48 @@ def prepare_correspondences(p_all: torch.Tensor, q_all: torch.Tensor):
 
 
 def sample_fit_score(pq, F, c, valid, triples, thresh_sq: float, *,
-                     edge_length_ratio: float = 0.9, use_checkers: bool = True):
+                     edge_length_ratio: float = 0.9, use_checkers: bool = True,
+                     approx_score: bool = False, return_features: bool = False):
     """Fit + checkers + score of the sampled triples (triples [B, K, 3] int64
-    rows of pq [B, M, 6]); the fp32 score.  Returns (R, t, counts [B, K])."""
+    rows of pq [B, M, 6]); see ``fit_score_gathers``."""
     ga, gb, gc = (
         torch.gather(pq, 1, triples[..., s, None].expand(-1, -1, pq.shape[-1])) for s in range(3)
     )
     return fit_score_gathers(ga, gb, gc, F, c, valid, thresh_sq,
-                             edge_length_ratio=edge_length_ratio, use_checkers=use_checkers)
+                             edge_length_ratio=edge_length_ratio, use_checkers=use_checkers,
+                             approx_score=approx_score, return_features=return_features)
 
 
-def sample_row_count(m: int, k: int) -> int:
+def sample_distinct_triples(bits: torch.Tensor, n) -> torch.Tensor:
+    """[..., K, 3] distinct indices in [0, n) from [..., K, 2] uint32 bits.
+
+    ``n``: an int, or an int tensor of the leading shape (one count a lane);
+    below 3 it counts as 3.  One uniform draw over n * (n - 1) * (n - 2)
+    decomposed into shrinking ranges and shifted past the values already
+    chosen.  JAX computes in uint32; this is the same arithmetic in int64
+    with the uint32 wrap of (n - 1) * (n - 2) written out.
+    """
+    n = torch.clamp_min(torch.as_tensor(n, dtype=torch.int64, device=bits.device), 3)[..., None]
+    a = bits[..., 0] % n
+    r = bits[..., 1] % (((n - 1) * (n - 2)) & U32)
+    b = r % (n - 1)
+    c = r // (n - 1)
+    b = b + (b >= a).to(torch.int64)
+    lo = torch.minimum(a, b)
+    hi = torch.maximum(a, b)
+    c = c + (c >= lo).to(torch.int64)
+    c = c + (c >= hi).to(torch.int64)
+    return torch.stack([a, b, c], dim=-1)
+
+
+def sample_row_count(m: int, k: int, sample_rows: int = 0) -> int:
     """Rows the roll sampler gathers per chunk of k hypotheses over m rows
-    (the JAX default, ``RansacConfig.sample_rows = 0``)."""
+    (``RansacConfig.sample_rows``): 0 the default cap min(m, max(256,
+    k // 16)), -1 every row (m), > 0 min(m, max(8, sample_rows))."""
+    if sample_rows < 0:
+        return m
+    if sample_rows > 0:
+        return min(m, max(8, sample_rows))
     return min(m, max(256, k // 16))
 
 
@@ -189,7 +220,8 @@ def fit_score_gathers(
     edge_length_ratio: float = 0.9,
     use_checkers: bool = True,
     approx_score: bool = False,
-) -> tuple[PlanarR, PlanarT, torch.Tensor]:
+    return_features: bool = False,
+) -> tuple:
     """Fit + checkers + score from pre-gathered sample rows (ga/gb/gc
     [B, K, 6]); F [B, M, 16], c [B, M], valid [B, M].  ``use_checkers``
     applies the edge-length and distance checkers (Open3D's).
@@ -199,7 +231,8 @@ def fit_score_gathers(
     so this is the JAX package's bf16-in, fp32-accumulate dot.
 
     Returns (R, t, counts [B, K] int32); checker failures and non-finite
-    fits score -1.
+    fits score -1.  With ``return_features`` also the fp32 hypothesis rows
+    (H [B, K, 16], e [B, K]), for an exact rescore (``rescore_rows``).
     """
     pa, qa = ga[..., :3], ga[..., 3:]
     pb, qb = gb[..., :3], gb[..., 3:]
@@ -208,14 +241,16 @@ def fit_score_gathers(
 
     H, e = hypothesis_features_planar(R, t)
     if approx_score:
-        H = H.to(torch.bfloat16)
-        F = F.to(torch.bfloat16)
-    counts = score_features(H, e, F, c, valid, thresh_sq)
+        counts = score_features(H.to(torch.bfloat16), e, F.to(torch.bfloat16), c, valid,
+                                thresh_sq)
+    else:
+        counts = score_features(H, e, F, c, valid, thresh_sq)
+    extra = (H, e) if return_features else ()
 
     # Degenerate / non-finite fits must never be elected.
     ok = ok & torch.isfinite(e)
     if not use_checkers:
-        return R, t, torch.where(ok, counts, -1)
+        return (R, t, torch.where(ok, counts, -1)) + extra
 
     def e2(a, b):
         d = a - b
@@ -235,7 +270,15 @@ def fit_score_gathers(
         return dx * dx + dy * dy + dz * dz < thresh_sq
 
     ok = ok & close(pa, qa) & close(pb, qb) & close(pc_, qc)
-    return R, t, torch.where(ok, counts, -1)
+    return (R, t, torch.where(ok, counts, -1)) + extra
+
+
+def rescore_rows(H, e, F, c, valid, thresh_sq: float) -> torch.Tensor:
+    """Exact fp32 inlier counts [B, K'] of hypothesis rows (H [B, K', 16],
+    e [B, K']) over every correspondence (F [B, M, 16], c, valid [B, M]):
+    the second stage of two-stage scoring, fp32 whatever ``approx_score``
+    says (on CUDA kernel 3's fp32 route)."""
+    return score_features(H.contiguous(), e.contiguous(), F, c, valid, thresh_sq)
 
 
 def count_inliers(T, p_all, q_all, valid, thresh_sq: float):

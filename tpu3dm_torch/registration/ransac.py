@@ -22,42 +22,19 @@ import torch
 from tpu3dm_torch.core.cloud import PointCloud
 from tpu3dm_torch.core.config import RansacConfig
 from tpu3dm_torch.ops.compact import compaction_permutation
-from tpu3dm_torch.parallel.multipair import draw_sample_bits, f32_cos_deg, f32_square
+from tpu3dm_torch.parallel.multipair import draw_bits, f32_cos_deg, f32_square
 from tpu3dm_torch.registration.hypotheses import (
     prepare_correspondences,
     rot_cos_planar,
+    sample_distinct_triples,
     sample_fit_score,
     winner_T,
 )
 from tpu3dm_torch.registration.result import RegistrationResult
 
-U32 = (1 << 32) - 1
-
-
 def chunk_count(max_iterations: int, batch_size: int) -> int:
     """Hypothesis chunks of the budget: the first axis of ``sample_bits``."""
     return max(1, -(-max_iterations // batch_size))
-
-
-def _sample_distinct_triples(bits: torch.Tensor, n: int) -> torch.Tensor:
-    """[K, 3] distinct indices in [0, n) from [K, 2] uint32 bits (n >= 3).
-
-    One uniform draw over n * (n - 1) * (n - 2) decomposed into shrinking
-    ranges and shifted past the values already chosen.  JAX computes in
-    uint32; this is the same arithmetic in int64 with the uint32 wrap of
-    (n - 1) * (n - 2) written out.
-    """
-    n = max(n, 3)
-    a = bits[:, 0] % n
-    r = bits[:, 1] % (((n - 1) * (n - 2)) & U32)
-    b = r % (n - 1)
-    c = r // (n - 1)
-    b = b + (b >= a).to(torch.int64)
-    lo = torch.minimum(a, b)
-    hi = torch.maximum(a, b)
-    c = c + (c >= lo).to(torch.int64)
-    c = c + (c >= hi).to(torch.int64)
-    return torch.stack([a, b, c], dim=1)
 
 
 def _required_iters(best_count: int, n_valid: int, conf: np.float32, max_iterations: int):
@@ -103,7 +80,7 @@ def ransac_two_mode(
     cos_thr = f32_cos_deg(mode_angle_deg)
     n_chunks = chunk_count(max_iterations, batch_size)
     if sample_bits is None:
-        sample_bits = draw_sample_bits(n_chunks, batch_size, 2, generator)
+        sample_bits = draw_bits((n_chunks, batch_size, 2), generator)
     if sample_bits.shape[0] < n_chunks or tuple(sample_bits.shape[1:]) != (batch_size, 2):
         raise ValueError(f"sample_bits must be [{n_chunks}, {batch_size}, 2], "
                          f"got {tuple(sample_bits.shape)}")
@@ -137,7 +114,7 @@ def ransac_two_mode(
         c1_host, n_valid, conf, max_iterations
     ):
         bits = sample_bits[chunk_i].to(device=dev, dtype=torch.int64)
-        triples = _sample_distinct_triples(bits, n_valid)
+        triples = sample_distinct_triples(bits, n_valid)
         R, t, counts = sample_fit_score(
             pq, F, c, valid1, triples[None], thresh_sq,
             edge_length_ratio=edge_length_ratio, use_checkers=use_checkers,
