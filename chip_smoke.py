@@ -66,6 +66,24 @@ Phases (any failure exits non-zero and prints no ok line):
      E's poses as init_T, turned 90 deg about z on the odd lanes so their
      election must drop the init_T probe), counted, gated, lanes 0-1
      against the CPU;
+  6e. path I, the batch API (registration/batch.py) at bench.py's
+     distinct-pair width: I1 preprocess_points_batch of the 16 clouds
+     (full_normals=False), cold and warm, each cloud's down normals and
+     features bit-equal to phase 3's per-cloud preprocess_points where the
+     capacities match (inside the CPU tests' bounds elsewhere), clouds 0-1
+     against the CPU; I2 register_pairs_batched over the 8 pairs tiled to
+     2048 (bucket_multiple 256, batch.py's defaults: 4096 hypotheses, 8 ICP
+     iterations / 2 solves a search, bf16 score, values_pk), launch counts
+     zeroed before and read after each bucket (1 lane_mutual, 4
+     lane_nn_smalld, 1 bf16 score), every pair gated, pairs 0-3 against the
+     CPU, pairs 0-7 alone against the whole call, pairs/s (median of 3
+     resolved calls), launch against resolve time, peak memory; I3
+     register_sources_to_target: 8 moved, re-noised copies of pair 0's
+     source tiled to 2048 against one ResidentTarget, gated, equal to
+     register_pairs_batched on the same pairs and bits; I4 checkpoint
+     resume of 64 pairs (no launch), the device voxel grid equal to the
+     host grid, noise sigma 0.05 (padding rows 0), down_features_dense on
+     the 16 clouds against the CPU;
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -90,7 +108,8 @@ Phases (any failure exits non-zero and prints no ok line):
      fused step's counted call, the fp32 score's two rows and 4-6 from path
      B's warm call, 7 from path C's counted call, the approx and bf16-cross
      rows of kernel 2 from paths E and F4, the rescore row from F1; each
-     row also lists its launches on every path), then the ok line, last.
+     row also lists its launches on every path, path I as "I" (I2's counted
+     call, all buckets) and "I3"), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -108,6 +127,8 @@ N_POINTS = 20_000
 HYPOTHESES = 4096
 ICP_ITERS = 8
 ICP_SOLVES_PER_NN = 4
+# Path I: batch.py's own default, 2 solves a search (4 searches a bucket).
+BATCH_SOLVES_PER_NN = 2
 # Path C / D: the rescue's production settings (bench.py's robustness config).
 RESCUE_RESTARTS = 3
 RESCUE_MODES = 6
@@ -756,12 +777,16 @@ def main() -> int:
     hard_launches = hard_paths(src, tgt, T_true, mu, M2, cfg, T_e)
     del T_e
 
-    # --- 7-10. the large-cloud path -----------------------------------------
+    # --- 6e. path I: the batch API (registration/batch.py) -------------------
     del src, tgt
+    torch.cuda.empty_cache()
+    batch_launches = batch_paths(dev, cfg, clouds, trues, moments)
+
+    # --- 7-10. the large-cloud path -----------------------------------------
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
-               **large_launches}
+               **batch_launches, **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -1378,6 +1403,290 @@ def fp32_score_case(sd, td, rc) -> dict:
         f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
         f"({r['bound'][1]})")
     return r
+
+
+def features_agree(label: str, got, want) -> str:
+    """Down normals and FPFH of two runs of one cloud, held to the bounds of
+    tests/test_torch_preprocess.py: |dot| > 0.9999 on >= 99% of valid rows
+    and > 0.9 on all, FPFH relative L1 median < 2e-3, 90th percentile
+    < 1e-2, max < 0.6; equal masks, masked rows 0.  Returns the worst
+    figures and whether the two were equal, for the log."""
+    m = want.mask.cpu().numpy()
+    if not np.array_equal(got.mask.cpu().numpy(), m):
+        fail(f"{label}: masks differ")
+    gn, wn = got.normals.cpu().numpy(), want.normals.cpu().numpy()
+    gf, wf = got.features.cpu().numpy(), want.features.cpu().numpy()
+    dots = (gn * wn).sum(1)[m]
+    rel = np.abs(gf - wf).sum(1)[m] / np.maximum(np.abs(wf).sum(1)[m], 1e-30)
+    if ((dots > 0.9999).mean() < 0.99 or dots.min() <= 0.9 or np.median(rel) >= 2e-3
+            or np.quantile(rel, 0.9) >= 1e-2 or rel.max() >= 0.6 or gf[~m].any() or gn[~m].any()
+            or not (np.isfinite(gf).all() and np.isfinite(gn).all())):
+        fail(f"{label}: normals dot min {dots.min():.6f}, FPFH relative L1 median "
+             f"{np.median(rel):.3g}, max {rel.max():.3g}")
+    return dots.min(), rel.max(), bool(np.array_equal(gn, wn) and np.array_equal(gf, wf))
+
+
+def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
+    """Path I: the batch API at bench.py's distinct-pair width.  I1 batched
+    ingest of the main path's 16 clouds; I2 ``register_pairs_batched`` over
+    the 8 pairs tiled to LANES pairs, launch counts zeroed before and read
+    after each bucket; I3 ``register_sources_to_target`` with one
+    ``ResidentTarget``; I4 checkpoint resume, the device voxel grid, noise
+    injection and the dense features.  ``clouds`` holds phase 3's per-cloud
+    down clouds (``preprocess_points`` on the card).  Returns {"I": the
+    counts of I2's counted call, "I3": I3's}."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tpu3dm_torch.core.cloud import from_numpy
+    from tpu3dm_torch.core.se3 import exp_se3
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.multiway.checkpoint import CheckpointStore
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.preprocess import voxel
+    from tpu3dm_torch.preprocess.dense import down_features_dense
+    from tpu3dm_torch.preprocess.pipeline import ProcessedCloud, preprocess_points_batch
+    from tpu3dm_torch.registration import batch
+
+    pp = cfg.preprocess
+    n_icp = -(-ICP_ITERS // BATCH_SOLVES_PER_NN)
+    bucket_expect = {"lane_mutual": 1, "lane_mutual_bf16_cross": 0, "lane_nn_wide": 0,
+                     "lane_nn_smalld": n_icp, "ransac_score_bf16": 1, "ransac_score": 0}
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # --- I1: batched ingest ----------------------------------------------------
+    raw = [c for s in range(PAIRS) for c in make_benchmark_pair(N_POINTS, seed=s, sigma=0.01)[:2]]
+
+    def ingest(clouds_=raw, **kw):
+        return preprocess_points_batch(clouds_, pp, full_normals=False, device=dev, **kw)
+
+    procs, cold_s = synced(ingest)
+    procs, warm_s = synced(ingest)
+    cap_d = procs[0].down.capacity
+    same_cap, exact, worst_dot, worst_rel = 0, 0, 1.0, 0.0
+    def rows(pc, n):  # the first n rows of a cloud
+        return pc.with_(**{f: getattr(pc, f)[:n] for f in ("points", "mask", "normals",
+                                                           "features")})
+
+    for i, pc in enumerate(procs):
+        single = clouds[i // 2][i % 2]
+        n = int(single.mask.sum())
+        same_cap += single.capacity == cap_d
+        if pc.full.points.device.type != "cpu" or pc.full.normals.any():
+            fail("path I1: full_normals=False must return host clouds with zero normals")
+        if pc.down.mask[n:].any() or not torch.equal(pc.down.points[:n], single.points[:n]):
+            fail(f"path I1: cloud {i}'s down points differ from per-cloud preprocess_points")
+        d, r, eq = features_agree(f"path I1 cloud {i} vs per-cloud", rows(pc.down, n),
+                                  rows(single, n))
+        if single.capacity == cap_d and not eq:
+            fail(f"path I1: cloud {i}'s down normals and features differ from per-cloud "
+                 f"preprocess_points at the same capacity (bit-equal expected)")
+        worst_dot, worst_rel, exact = min(worst_dot, d), max(worst_rel, r), exact + eq
+    cpu = preprocess_points_batch(raw[:2], pp, full_normals=False, down_cap=cap_d, device="cpu")
+    cpu_note = [features_agree(f"path I1 cloud {i} card vs CPU", procs[i].down, cpu[i].down)
+                for i in range(2)]
+    log(f"path I1 (preprocess_points_batch, full_normals=False): {len(raw)} clouds of "
+        f"{N_POINTS} points, down capacity {cap_d}: cold {cold_s * 1e3:.1f} ms, warm "
+        f"{warm_s * 1e3:.1f} ms; vs per-cloud preprocess_points on the card: {same_cap} of "
+        f"{len(raw)} at the same capacity (bit-equal required), {exact} equal bit for bit, "
+        f"least normal dot "
+        f"{worst_dot:.7f}, largest FPFH relative L1 {worst_rel:.3g}; clouds 0-1 vs CPU: "
+        f"least dot {min(c[0] for c in cpu_note):.7f}, largest L1 "
+        f"{max(c[1] for c in cpu_note):.3g}, equal {sum(c[2] for c in cpu_note)} of 2")
+
+    # --- I2: register_pairs_batched over LANES pairs -----------------------------
+    pairs = [(procs[2 * (j % PAIRS)], procs[2 * (j % PAIRS) + 1]) for j in range(LANES)]
+    T_true = np.tile(np.stack(trues), (LANES // PAIRS, 1, 1))
+    mu = np.tile(np.stack([mo[0] for mo in moments]), (LANES // PAIRS, 1))
+    M2 = np.tile(np.stack([mo[1] for mo in moments]), (LANES // PAIRS, 1, 1))
+    shape, _ = batch.pair_bits_shape(cap_d, ransac_iterations=HYPOTHESES)
+    bits = draw_bits((LANES,) + shape, torch.Generator().manual_seed(11))
+    kw = dict(pair_bits=bits, bucket_multiple=256, ransac_iterations=HYPOTHESES,
+              icp_iterations=ICP_ITERS, icp_solves_per_nn=BATCH_SOLVES_PER_NN, approx_score=True)
+    shared_kw = dict(kw)
+    kw["device"] = dev
+
+    def register(pairs_=pairs, **over):
+        return batch.register_pairs_batched(pairs_, cfg, **{**kw, **over})
+
+    register()  # warm-up
+    per_bucket = []
+    step = batch.fused_register_step
+
+    def counted_step(*a, **k):  # the launch counts and wall time of one bucket
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        out = step(*a, **k)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        per_bucket.append((a[0].shape[1], a[0].shape[0], {n: v.launches for n, v in KERNELS.items()}))
+        return out
+
+    step_s = []
+
+    batch.fused_register_step = counted_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res, counted_s = synced(register)
+    finally:
+        batch.fused_register_step = step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for cap, b, counts in per_bucket:
+        if any(counts[k] != n for k, n in bucket_expect.items()):
+            fail(f"path I2 bucket cap {cap} ({b} pairs) launched {counts}, expected {bucket_expect}")
+    total = {k: sum(c[k] for _, _, c in per_bucket) for k in KERNELS}
+    sizes = {cap: res.bucket_of_pair.count(cap) for cap in sorted(set(res.bucket_of_pair))}
+    if sum(b for _, b, _ in per_bucket) != LANES or sorted(sizes.items()) != sorted(
+            (cap, b) for cap, b, _ in per_bucket):
+        fail(f"path I2: buckets {sizes} against the dispatched {per_bucket}")
+    T = torch.from_numpy(res.transforms)
+    worst = gate_lanes("path I2", T, T_true, mu, M2)
+    cpu_pairs = [tuple(ProcessedCloud(full=None, down=c.down.with_(
+        **{f: getattr(c.down, f).cpu() for f in ("points", "mask", "normals", "features")}),
+        voxel_size=pp.voxel_size) for c in pr) for pr in pairs[:4]]
+    ref = agree_cpu("path I2 pairs 0-3", T[:4], torch.from_numpy(
+        register(cpu_pairs, pair_bits=bits[:4], device="cpu").transforms))
+    # Bucket mates: pairs 0-7 alone in their buckets, against the whole call.
+    alone = register(pairs[:PAIRS], pair_bits=bits[:PAIRS])
+    mates_gap = float(np.abs(alone.transforms - res.transforms[:PAIRS]).max())
+    if mates_gap > 1e-4:
+        fail(f"path I2: pairs 0-7 alone differ from the whole call by {mates_gap:.3g}")
+    times, launch_only, resolve_only = [], [], []
+    for _ in range(3):
+        pending, t_launch = synced(lambda: batch.launch_pairs_batched(pairs, cfg, **kw))
+        _, t_resolve = synced(pending.resolve)
+        launch_only.append(t_launch)
+        resolve_only.append(t_resolve)
+        times.append(t_launch + t_resolve)
+    call_s = float(np.median(times))
+    log(f"path I2 (register_pairs_batched, {LANES} pairs = {PAIRS} tiled, bucket_multiple 256, "
+        f"{HYPOTHESES} hypotheses, {ICP_ITERS} ICP iterations / {BATCH_SOLVES_PER_NN} solves a "
+        f"search, bf16 score, values_pk): buckets {sizes} (capacity: pairs); each bucket "
+        f"launched {bucket_expect}; call {call_s * 1e3:.1f} ms median of 3 -> "
+        f"{LANES / call_s:.1f} pairs/s (launch {np.median(launch_only) * 1e3:.1f} ms, resolve "
+        f"{np.median(resolve_only) * 1e3:.1f} ms; counted call {counted_s * 1e3:.1f} ms, of "
+        f"which the buckets' steps {' + '.join(f'{t * 1e3:.1f}' for t in step_s)} ms); peak "
+        f"memory {peak:.2f} GiB; {worst}, fitness min {res.ransac_fitness.min():.3f}; pairs 0-3 "
+        f"vs CPU: {ref}; pairs 0-7 alone vs in the call: max |T difference| {mates_gap:.3g}")
+    profile_report(register, "path I2")
+    out = {"I": total}
+
+    # --- I3: many sources against one resident target ----------------------------
+    rng = np.random.default_rng(13)
+    sp0 = raw[0]
+    moves, sources_raw = [], []
+    for _ in range(PAIRS):
+        axis = rng.normal(size=3)
+        xi = np.concatenate([rng.uniform(-0.5, 0.5, 3),
+                             axis / np.linalg.norm(axis) * np.radians(rng.uniform(10, 40))])
+        M = exp_se3(torch.tensor(xi, dtype=torch.float64)).numpy()
+        moves.append(M)
+        sources_raw.append((sp0 @ M[:3, :3].T + M[:3, 3]
+                            + rng.normal(0, 0.01, sp0.shape)).astype(np.float32))
+    sources = ingest(sources_raw)
+    target = batch.ResidentTarget(procs[0], device=dev)
+    src_pairs = [sources[j % PAIRS] for j in range(LANES)]
+    T_src = np.tile(np.stack([np.linalg.inv(M) for M in moves]), (LANES // PAIRS, 1, 1))
+    mu3 = np.tile(np.stack([s.mean(0) for s in sources_raw]), (LANES // PAIRS, 1))
+    M23 = np.tile(np.stack([s.T.astype(np.float64) @ s / s.shape[0] for s in sources_raw]),
+                  (LANES // PAIRS, 1, 1))
+
+    def shared():
+        return batch.register_sources_to_target(src_pairs, target, cfg, **shared_kw)
+
+    shared()  # warm-up
+    reset_launch_counts()
+    res3, counted3 = synced(shared)
+    out["I3"] = {k: v.launches for k, v in KERNELS.items()}
+    worst3 = gate_lanes("path I3", torch.from_numpy(res3.transforms), T_src, mu3, M23)
+    direct = register([(s, procs[0]) for s in src_pairs])
+    gap = float(np.abs(res3.transforms - direct.transforms).max())
+    if gap > 1e-4 or res3.bucket_of_pair != direct.bucket_of_pair:
+        fail(f"path I3: shared target and pair-batched transforms differ by {gap:.3g}")
+    t3 = float(np.median([synced(shared)[1] for _ in range(3)]))
+    log(f"path I3 (register_sources_to_target, {LANES} sources = {PAIRS} moved copies of pair "
+        f"0's source, one ResidentTarget): call {t3 * 1e3:.1f} ms median of 3 -> "
+        f"{LANES / t3:.1f} pairs/s (counted call {counted3 * 1e3:.1f} ms); {worst3}; vs "
+        f"register_pairs_batched on the same pairs and bits: max |T difference| {gap:.3g}; "
+        f"launches { {k: v for k, v in out['I3'].items() if v} }")
+
+    # --- I4: checkpoint resume, device voxel grid, noise, dense features ---------
+    names = [f"pair-{i}" for i in range(min(64, LANES))]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp)
+        ck = dict(checkpoint=store, pair_names=names, pair_bits=bits[:len(names)])
+        first = register(pairs[:len(names)], **ck)
+        reset_launch_counts()
+        again = register(pairs[:len(names)], **ck)
+        launched = {k: v.launches for k, v in KERNELS.items() if v.launches}
+    ck_gap = float(np.abs(again.transforms - first.transforms).max())
+    if launched or again.bucket_of_pair != [-1] * len(names) or ck_gap > 1e-6:
+        fail(f"path I4 resume: launches {launched}, buckets {set(again.bucket_of_pair)}, "
+             f"|T difference| {ck_gap:.3g}")
+
+    pts32 = sp0.astype(np.float32)  # the grid's input on both routes
+    pc = from_numpy(pts32, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    grid = voxel.voxel_downsample(pc, pp.voxel_size)
+    end.record()
+    grid = voxel.compact(grid)
+    host = voxel.voxel_downsample_host(pts32, pp.voxel_size, device=dev)
+    if not (torch.equal(grid.points, host.points) and torch.equal(grid.mask, host.mask)):
+        fail("path I4: the device voxel grid differs from the host grid")
+    voxel_ms = start.elapsed_time(end)
+
+    noisy_pp = dataclasses.replace(pp, noise_sigma=0.05)
+    noisy = preprocess_points_batch(raw, noisy_pp, full_normals=False, device=dev,
+                                    generator=torch.Generator().manual_seed(17))
+    deltas = []
+    for a, b in zip(noisy, procs):
+        m = b.down.mask
+        if a.down.points[~m].any() or not torch.equal(a.down.features, b.down.features):
+            fail("path I4: noise moved a padding row or changed the features")
+        deltas.append((a.down.points - b.down.points)[m].double().cpu())
+    dn = torch.cat(deltas)
+    n_noise = dn.numel()
+    if abs(dn.mean().item()) > 4 * 0.05 / n_noise ** 0.5 or abs(dn.std().item() - 0.05) > 0.0025:
+        fail(f"path I4: noise mean {dn.mean().item():.3g}, std {dn.std().item():.4f} for sigma 0.05")
+
+    def dense(pc_):
+        return down_features_dense(pc_, pp.normal_radius, pp.fpfh_radius,
+                                   normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn)
+
+    dense([p.down for p in procs][0])  # warm-up
+    start.record()
+    dense_card = [dense(p.down) for p in procs]
+    end.record()
+    torch.cuda.synchronize()
+    dense_ms = start.elapsed_time(end)
+    t0 = time.time()
+    dense_cpu = [dense(p.down.with_(**{f: getattr(p.down, f).cpu() for f in
+                                        ("points", "mask", "normals", "features")}))
+                 for p in procs]
+    dense_cpu_s = time.time() - t0
+    notes = [features_agree(f"path I4 dense cloud {i}", a, b)
+             for i, (a, b) in enumerate(zip(dense_card, dense_cpu))]
+    log(f"path I4: checkpoint resume of {len(names)} pairs restored every pair (bucket -1), no launch, "
+        f"|T difference| {ck_gap:.3g}; device voxel grid of a {N_POINTS}-point cloud equal to "
+        f"the host grid ({int(grid.mask.sum())} voxels, {voxel_ms:.3f} ms CUDA events); noise "
+        f"sigma 0.05 on {n_noise} coordinates: mean {dn.mean().item():.3g}, std "
+        f"{dn.std().item():.5f}, padding rows 0, features unchanged; down_features_dense on "
+        f"{len(procs)} clouds at capacity {cap_d}: card {dense_ms:.2f} ms (CUDA events), CPU "
+        f"{dense_cpu_s * 1e3:.1f} ms; card vs CPU least normal dot "
+        f"{min(n[0] for n in notes):.7f}, largest FPFH relative L1 {max(n[1] for n in notes):.3g}, "
+        f"equal {sum(n[2] for n in notes)} of {len(notes)}")
+    return out
 
 
 def large_phases(dev, results: dict) -> dict:

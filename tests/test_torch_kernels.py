@@ -1090,3 +1090,130 @@ def test_register_arrays_large_cuda_matches_cpu(cuda_device):
     moved = sp @ T[:3, :3].T + T[:3, 3]
     expect = sp @ T_true[:3, :3].T + T_true[:3, 3]
     assert rot < 2.0 and np.sqrt(((moved - expect) ** 2).sum(1).mean()) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# The batch API and its ingest (registration/batch.py, preprocess_points_batch,
+# the device voxel grid, the dense features) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _features_close(a, b):
+    """Down normals and FPFH of two runs of one cloud, held to the bounds of
+    tests/test_torch_preprocess.py (|dot| > 0.9999 on >= 99% of valid rows
+    and > 0.9 on all; FPFH relative L1 median < 2e-3, 90th percentile
+    < 1e-2, max < 0.6); equal masks."""
+    m = b.mask.cpu().numpy()
+    assert np.array_equal(a.mask.cpu().numpy(), m)
+    dots = (a.normals.cpu().numpy() * b.normals.cpu().numpy()).sum(1)[m]
+    assert (dots > 0.9999).mean() >= 0.99 and dots.min() > 0.9
+    fa, fb = a.features.cpu().numpy(), b.features.cpu().numpy()
+    rel = np.abs(fa - fb).sum(1)[m] / np.abs(fb).sum(1)[m]
+    assert np.median(rel) < 2e-3 and np.quantile(rel, 0.9) < 1e-2 and rel.max() < 0.6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0.0, 2000.0])
+def test_voxel_downsample_cuda_equals_host_grid(cuda_device, shift):
+    from tpu3dm_torch.core.cloud import from_numpy
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess import voxel
+
+    sp = (make_benchmark_pair(20000, seed=3, sigma=0.01)[0] + shift).astype(np.float32)
+    pc = from_numpy(sp, device=cuda_device)
+    grid = voxel.voxel_downsample(pc, 0.3)
+    assert grid.points.is_cuda and grid.capacity == pc.capacity
+    grid = voxel.compact(grid)
+    host = voxel.voxel_downsample_host(sp, 0.3, device=cuda_device)
+    assert torch.equal(grid.points, host.points) and torch.equal(grid.mask, host.mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [0.0, 2000.0])
+def test_preprocess_points_batch_cuda_matches_cpu(cuda_device, shift):
+    """Batched ingest on the card against the CPU (same down points, features
+    within the CPU tests' bounds), each cloud's self-distance pinned, and the
+    noise of given draws equal on both."""
+    import dataclasses
+
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+
+    pp = dataclasses.replace(PipelineConfig.with_voxel_size(0.3).preprocess, noise_sigma=0.05)
+    clouds = [c + shift for s in range(2) for c in make_benchmark_pair(6000, seed=s,
+                                                                      sigma=0.01)[:2]]
+    noise = torch.randn((4, 768, 3), generator=torch.Generator().manual_seed(1))
+    card = preprocess_points_batch(clouds, pp, noise=noise, full_normals=False)
+    cpu = preprocess_points_batch(clouds, pp, noise=noise, full_normals=False, device="cpu")
+    for a, b in zip(card, cpu):
+        assert a.down.points.is_cuda and a.down.capacity == b.down.capacity == 768
+        assert torch.equal(a.down.points.cpu(), b.down.points)
+        _features_close(a.down, b.down)
+
+
+@pytest.mark.gpu
+def test_register_pairs_batched_cuda_matches_cpu(cuda_device):
+    """Two buckets of mixed-size pairs on the card against the CPU, same
+    bits: poses within 0.5 deg and 0.02, one mutual search, 4 ICP searches
+    and one bf16 score a bucket; the shared target equals the pair-batched
+    call on the card; a resumed checkpoint launches nothing."""
+    import tempfile
+
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.multiway.checkpoint import CheckpointStore
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+    from tpu3dm_torch.registration import batch
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    raw = [c for s, n in ((0, 3000), (1, 20000), (2, 3500))
+           for c in make_benchmark_pair(n, seed=s, sigma=0.01)[:2]]
+    card = preprocess_points_batch(raw, cfg.preprocess, full_normals=False)
+    cpu = preprocess_points_batch(raw, cfg.preprocess, full_normals=False, device="cpu")
+    pairs = [(card[i], card[i + 1]) for i in range(0, 6, 2)]
+    cpu_pairs = [(cpu[i], cpu[i + 1]) for i in range(0, 6, 2)]
+    bits = draw_bits((3, 1, 256), torch.Generator().manual_seed(2))
+    kw = dict(pair_bits=bits, ransac_iterations=1024, bucket_multiple=64)
+    reset_launch_counts()
+    res = batch.register_pairs_batched(pairs, cfg, **kw)
+    n_buckets = len(set(res.bucket_of_pair))
+    assert n_buckets == 2
+    assert KERNELS["lane_mutual"].launches == n_buckets
+    assert KERNELS["lane_nn_smalld"].launches == 4 * n_buckets
+    assert KERNELS["ransac_score_bf16"].launches == n_buckets
+    ref = batch.register_pairs_batched(cpu_pairs, cfg, device="cpu", **kw)
+    assert res.bucket_of_pair == ref.bucket_of_pair
+    Ta, Tb = torch.from_numpy(res.transforms).double(), torch.from_numpy(ref.transforms).double()
+    fro = torch.linalg.matrix_norm(Ta[:, :3, :3] - Tb[:, :3, :3])
+    assert torch.rad2deg(2 * torch.asin(fro / (2 * 2 ** 0.5))).max() < 0.5
+    assert (Ta[:, :3, 3] - Tb[:, :3, 3]).abs().max() < 0.02
+    shared = batch.register_sources_to_target([p[0] for p in pairs],
+                                              batch.ResidentTarget(pairs[0][1]), cfg, **kw)
+    direct = batch.register_pairs_batched([(p[0], pairs[0][1]) for p in pairs], cfg, **kw)
+    np.testing.assert_allclose(shared.transforms, direct.transforms, atol=1e-4)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(checkpoint=CheckpointStore(tmp), pair_names=["a", "b", "c"], **kw)
+        first = batch.register_pairs_batched(pairs, cfg, **ck)
+        reset_launch_counts()
+        again = batch.register_pairs_batched(pairs, cfg, **ck)
+    assert again.bucket_of_pair == [-1] * 3 and all(k.launches == 0 for k in KERNELS.values())
+    np.testing.assert_allclose(again.transforms, first.transforms, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_down_features_dense_cuda_matches_cpu(cuda_device):
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.dense import down_features_dense
+    from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
+
+    pp = PipelineConfig.with_voxel_size(0.3).preprocess
+    sp = make_benchmark_pair(20000, seed=4, sigma=0.01)[0]
+    for kn, kf in ((30, 100), (100, 30), (0, 0)):
+        outs = [down_features_dense(voxel_downsample_host(sp, 0.3, device=d), pp.normal_radius,
+                                    pp.fpfh_radius, normal_max_nn=kn, fpfh_max_nn=kf)
+                for d in (cuda_device, "cpu")]
+        assert outs[0].features.is_cuda
+        _features_close(*outs)

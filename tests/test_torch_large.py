@@ -184,10 +184,26 @@ def test_feature_correspondences_mutual_tiled_masks_match_jax(case):
 
 
 def test_feature_correspondences_reject_noise():
+    """noise_ratio > 0 is ported: with JAX's draws (``split(key, 3)``:
+    uniform, then the source and target indices) the corrupted pairs equal
+    JAX's exactly; draws of the wrong length are rejected."""
     rng = np.random.default_rng(0)
-    _, _, ps, pt = _feature_clouds(rng, 10, 10, 16, 16)
-    with pytest.raises(NotImplementedError):
-        pcorr.feature_correspondences(ps, pt, noise_ratio=0.1)
+    js, jt, ps, pt = _feature_clouds(rng, 300, 250, 512, 512)
+    key = jax.random.PRNGKey(7)
+    pj, vj = (np.asarray(x) for x in jcorr.feature_correspondences(
+        js, jt, mutual_filter=False, noise_ratio=0.5, key=key))
+    k1, k2, k3 = jax.random.split(key, 3)
+    draws = (_t(jax.random.uniform(k1, (512,))), _t(jax.random.randint(k2, (512,), 0, 300)),
+             _t(jax.random.randint(k3, (512,), 0, 250)))
+    pp, vp = pcorr.feature_correspondences(ps, pt, noise_ratio=0.5, noise_draws=draws)
+    np.testing.assert_array_equal(vp.numpy(), vj)
+    np.testing.assert_array_equal(pp.numpy(), pj)
+    clean, _ = pcorr.feature_correspondences(ps, pt)
+    hit = (pp != clean).any(1).numpy()[vj].mean()
+    assert 0.2 < hit < 0.45  # r / (1 + r) = 1/3 of the valid pairs, less chance hits
+    with pytest.raises(ValueError):
+        pcorr.feature_correspondences(ps, pt, noise_ratio=0.5,
+                                      noise_draws=tuple(x[:511] for x in draws))
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_batch_entry_points_raise_without_cuda(monkeypatch):
+    """The batch API and its ingest default to CUDA too."""
+    from tpu3dm_torch.io.loader import voxel_downsample_many
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points, preprocess_points_batch
+    from tpu3dm_torch.registration import batch
+
+    pts = np.random.default_rng(2).normal(size=(400, 3))
+    cloud = preprocess_points(pts, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: preprocess_points_batch([pts]),
+                 lambda: voxel_downsample_many([pts], 0.3),
+                 lambda: batch.register_pairs_batched([(cloud, cloud)]),
+                 lambda: batch.launch_pairs_batched([(cloud, cloud)]),
+                 lambda: batch.ResidentTarget(cloud)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_precision_is_full_fp32():
     import tpu3dm_torch  # noqa: F401
 

@@ -10,6 +10,8 @@ among ties).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tpu3dm_torch.ops.nn import BIG, _sq_norms
@@ -23,8 +25,16 @@ def nn_topk(
     *,
     k: int,
     radius: float | None = None,
+    self_pairs: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """k nearest valid targets of each query, optionally radius-bounded.
+
+    ``self_pairs``: query row i is target row i (a cloud against itself), and
+    a valid row's distance to itself is pinned to exactly 0.  Computed, it
+    is |a|^2 + |a|^2 - 2 a.a, where the matmul's rounding differs from the
+    norm's: the residue reaches ~1e-4 some 30 units from the origin, and
+    FPFH's d2 > eps test would take the row for its own neighbour with a
+    1 / d2 weight.  XLA's CPU and TPU arithmetic leave JAX's residue at 0.
 
     Returns (d2 [..., Nq, k] ascending, idx [..., Nq, k] int64,
     valid [..., Nq, k]): slots beyond the in-radius neighbours have
@@ -38,9 +48,23 @@ def nn_topk(
     d2 = torch.where(d2 <= r2, d2, BIG)
     d2 = torch.clamp_min(d2, 0.0)
     d2 = torch.where(tsq[..., None, :] >= BIG, BIG, d2)
+    if self_pairs:
+        diag = d2.diagonal(dim1=-2, dim2=-1)
+        diag.copy_(torch.where(tsq >= BIG, BIG, 0.0))
     d2, idx = torch.sort(d2, dim=-1, stable=True)
     d2, idx = d2[..., :k], idx[..., :k]
     valid = d2 < BIG
     if query_mask is not None:
         valid = valid & query_mask[..., None]
     return d2, idx, valid
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x [..., N, C] at kNN slots idx [..., Nq, K] of the same
+    leading shape: [..., Nq, K, C] (``x[idx]`` for one cloud)."""
+    if x.ndim == 2:
+        return x[idx]
+    n, c = x.shape[-2:]
+    lead = x.shape[:-2]
+    off = torch.arange(math.prod(lead), device=idx.device).reshape(lead + (1, 1)) * n
+    return x.reshape(-1, c)[idx + off]

@@ -13,6 +13,7 @@ import math
 import torch
 
 from tpu3dm_torch.core.cloud import PAD_SENTINEL, PointCloud
+from tpu3dm_torch.ops.topk import gather_rows
 
 FPFH_DIM = 33
 _NBINS = 11
@@ -22,13 +23,13 @@ _EPS = 1e-12
 def _pair_features(qp, qn, pj, nj, dp, dist, nb):
     """Open3D/PCL pair features with the source/target swap rule.
 
-    qp, qn: [N, 3] query points / normals; pj, nj: [N, K, 3] neighbours;
-    dp = pj - qp[:, None]; dist = |dp|; nb: [N, K] neighbour validity.
-    Returns (theta, alpha, phi), each [N, K].
+    qp, qn: [..., N, 3] query points / normals; pj, nj: [..., N, K, 3]
+    neighbours; dp = pj - qp[..., None, :]; dist = |dp|; nb: [..., N, K]
+    neighbour validity.  Returns (theta, alpha, phi), each [..., N, K].
     """
     del qp, nb
     safe_dist = torch.clamp_min(dist, _EPS)
-    ni = qn[:, None, :].expand(pj.shape)
+    ni = qn[..., None, :].expand(pj.shape)
     angle1 = torch.sum(ni * dp, dim=-1) / safe_dist
     angle2 = torch.sum(nj * dp, dim=-1) / safe_dist
     # acos(|a1|) > acos(|a2|)  <=>  |a1| < |a2|  -> swap
@@ -56,20 +57,20 @@ def _pair_features(qp, qn, pj, nj, dp, dist, nb):
 def fpfh_from_knn(
     pc: PointCloud, d2: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor
 ) -> PointCloud:
-    """Open3D-exact FPFH of one cloud from hybrid-search slots [N, K]."""
-    pts = torch.where(pc.mask[:, None], pc.points, PAD_SENTINEL)
+    """Open3D-exact FPFH of a cloud ([N, 3] points), or of a batch of clouds
+    ([B, N, 3]), from hybrid-search slots [..., N, K]."""
+    pts = torch.where(pc.mask[..., None], pc.points, PAD_SENTINEL)
     nrm = pc.normals
-    n = pts.shape[0]
     nb = valid & (d2 > _EPS)  # true neighbours: in radius, not self
 
-    pj = pts[idx]
-    njn = nrm[idx]
-    dp = pj - pts[:, None, :]
+    pj = gather_rows(pts, idx)
+    njn = gather_rows(nrm, idx)
+    dp = pj - pts[..., None, :]
     dist = torch.sqrt(torch.clamp_min(d2, 0.0))
     theta, alpha, phi = _pair_features(pts, nrm, pj, njn, dp, dist, nb)
 
     nbf = nb.to(torch.float32)
-    cnt = torch.sum(nbf, dim=1)
+    cnt = torch.sum(nbf, dim=-1)
     hist_incr = torch.where(cnt > 0, 100.0 / torch.clamp_min(cnt, 1.0), 0.0)
     iota = torch.arange(_NBINS, device=pts.device)
 
@@ -77,18 +78,18 @@ def fpfh_from_knn(
         b = torch.floor((x - lo) / (hi - lo) * _NBINS).to(torch.int64)
         b = torch.clamp(b, 0, _NBINS - 1)
         onehot = (b[..., None] == iota).to(torch.float32)
-        return torch.einsum("nk,nkb->nb", nbf, onehot)
+        return torch.einsum("...nk,...nkb->...nb", nbf, onehot)
 
     # Open3D bin order: theta -> slots 0-10, alpha -> 11-21, phi -> 22-32.
     spfh = torch.cat(
         [hist11(theta, -math.pi, math.pi), hist11(alpha, -1.0, 1.0), hist11(phi, -1.0, 1.0)],
-        dim=1,
-    ) * hist_incr[:, None]
+        dim=-1,
+    ) * hist_incr[..., None]
 
     wgt = torch.where(nb, 1.0 / torch.clamp_min(d2, _EPS), 0.0)
-    acc = torch.einsum("nk,nkj->nj", wgt, spfh[idx])
-    sub = acc.reshape(n, 3, _NBINS).sum(dim=2)
+    acc = torch.einsum("...nk,...nkj->...nj", wgt, gather_rows(spfh, idx))
+    sub = acc.reshape(acc.shape[:-1] + (3, _NBINS)).sum(dim=-1)
     scale = torch.where(sub > 0, 100.0 / torch.clamp_min(sub, _EPS), 0.0)
-    fpfh = acc * torch.repeat_interleave(scale, _NBINS, dim=1) + spfh
-    fpfh = torch.where(pc.mask[:, None], fpfh, 0.0)
+    fpfh = acc * torch.repeat_interleave(scale, _NBINS, dim=-1) + spfh
+    fpfh = torch.where(pc.mask[..., None], fpfh, 0.0)
     return pc.with_(features=fpfh)

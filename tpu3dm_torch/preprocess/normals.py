@@ -22,7 +22,7 @@ import torch
 from tpu3dm_torch.core.cloud import PAD_SENTINEL, PointCloud
 from tpu3dm_torch.ops.eigh3 import smallest_eigvec_sym3
 from tpu3dm_torch.ops.nn import lane_slices
-from tpu3dm_torch.ops.topk import nn_topk
+from tpu3dm_torch.ops.topk import gather_rows, nn_topk
 
 # Query rows of one block of radius_covariance_stats: JAX streams query
 # blocks of this size once a cloud is larger (its 8192 x 1024 slabs are 32 MB).
@@ -85,10 +85,10 @@ def _oriented(pc: PointCloud, cov: torch.Tensor) -> PointCloud:
     """The smallest eigenvectors of ``cov``, pointed away from the centroid,
     zero at masked rows."""
     _, v = smallest_eigvec_sym3(cov)
-    outward = pc.points - pc.centroid()[None, :]
-    flip = torch.sum(v * outward, dim=1) < 0.0
-    v = torch.where(flip[:, None], -v, v)
-    v = torch.where(pc.mask[:, None], v, 0.0)
+    outward = pc.points - pc.centroid()[..., None, :]
+    flip = torch.sum(v * outward, dim=-1) < 0.0
+    v = torch.where(flip[..., None], -v, v)
+    v = torch.where(pc.mask[..., None], v, 0.0)
     return pc.with_(normals=v)
 
 
@@ -100,17 +100,28 @@ def estimate_normals(pc: PointCloud, radius: float, *, chunk: int = 1024) -> Poi
 
 
 def _knn_covariance(points: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """[N, 3, 3] covariance of the valid neighbour slots (idx, valid [N, K])."""
-    pj = points[idx]  # [N, K, 3]
+    """[..., N, 3, 3] covariance of the valid neighbour slots (idx, valid
+    [..., N, K]).
+
+    The slot sums run in slot order as elementwise ops, so a cloud's
+    covariance has the same bits alone or in a batch of clouds (a batched
+    matmul's summation order depends on the batch)."""
+    pj = gather_rows(points, idx)  # [..., N, K, 3]
     w = valid.to(torch.float32)
-    cnt = torch.clamp_min(torch.sum(w, dim=1), 1.0)
-    mean = torch.einsum("nk,nkd->nd", w, pj) / cnt[:, None]
-    c = (pj - mean[:, None, :]) * w[..., None]
-    return torch.einsum("nki,nkj->nij", c, c) / cnt[:, None, None]
+    cnt = torch.clamp_min(torch.sum(w, dim=-1), 1.0)  # whole numbers: exact in any order
+    s = pj[..., 0, :] * w[..., 0, None]
+    for k in range(1, pj.shape[-2]):
+        s = s + pj[..., k, :] * w[..., k, None]
+    c = (pj - (s / cnt[..., None])[..., None, :]) * w[..., None]
+    cov = c[..., 0, :, None] * c[..., 0, None, :]
+    for k in range(1, c.shape[-2]):
+        cov = cov + c[..., k, :, None] * c[..., k, None, :]
+    return cov / cnt[..., None, None]
 
 
 def normals_from_knn(pc: PointCloud, idx: torch.Tensor, valid: torch.Tensor) -> PointCloud:
-    """Normals of one cloud ([N, 3] points) from precomputed kNN slots."""
+    """Normals of a cloud ([N, 3] points), or of a batch of clouds ([B, N,
+    3]), from precomputed kNN slots."""
     return _oriented(pc, _knn_covariance(pc.points, idx, valid))
 
 

@@ -152,12 +152,21 @@ def global_registration_two_mode(
     config: RansacConfig,
     sample_bits: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    noise_draws: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[RegistrationResult, RegistrationResult]:
-    """FPFH correspondences (mutual per config), then ``ransac_two_mode``."""
+    """FPFH correspondences (mutual per config, corrupted at
+    ``config.noise_ratio``), then ``ransac_two_mode``.
+
+    JAX splits its key into the correspondences' ``k_corr`` and the RANSAC
+    key; here ``noise_draws`` (see ``feature_correspondences``) and
+    ``sample_bits`` are passed apart, each drawn from ``generator`` when
+    None.
+    """
     from tpu3dm_torch.registration.correspondence import feature_correspondences, gather_pairs
 
     pairs, pairs_valid = feature_correspondences(
-        src, tgt, mutual_filter=config.mutual_filter, noise_ratio=config.noise_ratio
+        src, tgt, mutual_filter=config.mutual_filter, noise_ratio=config.noise_ratio,
+        noise_draws=noise_draws, generator=generator,
     )
     p_all, q_all = gather_pairs(src, tgt, pairs)
     return ransac_two_mode(
