@@ -84,6 +84,23 @@ Phases (any failure exits non-zero and prints no ok line):
      resume of 64 pairs (no launch), the device voxel grid equal to the
      host grid, noise sigma 0.05 (padding rows 0), down_features_dense on
      the 16 clouds against the CPU;
+  6f. path S, the disk-to-result stream (registration/stream.py) at
+     bench.py's stream settings: S1 stream_register_pairs over a fresh
+     384-pair manifest cycling the arch, plate and scan families (20,000
+     points, sigma 0.01, written to a temporary directory and removed),
+     fuse_device=True, window 128, down_cap 896, 4096 hypotheses, 8 ICP
+     iterations / 4 solves a search, bf16 score, 3 rescue restarts, the
+     symmetry-probe retry with measure_warm; launch counts zeroed before and
+     read after (kernels 1, 2 and the bf16 score > 0 required), each
+     window's time and host ingest, steady and fresh pairs/s, the retry's
+     pairs and seconds, peak memory, stream_quality (its gate required) and
+     the gate per family, then S1 again without the retry (each pair over
+     2 deg before or after the retry); S2 the first 128 pairs at window 64,
+     equal to S1 within 1e-6; S3 the first 32 pairs on the generic path,
+     within 0.5 deg and 0.02 of S1; S4 pairs 0-2 on the CPU with the same
+     bits, within the CPU agreement limit; S5 window 1's 256 clouds: batched
+     dense features equal to per-cloud ones bit for bit, both timed; then
+     measure_fused_device_rate and one profiled window;
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -109,7 +126,8 @@ Phases (any failure exits non-zero and prints no ok line):
      B's warm call, 7 from path C's counted call, the approx and bf16-cross
      rows of kernel 2 from paths E and F4, the rescore row from F1; each
      row also lists its launches on every path, path I as "I" (I2's counted
-     call, all buckets) and "I3"), then the ok line, last.
+     call, all buckets), "I3" and "S" (S1's counted run)), then the ok
+     line, last.
 """
 
 from __future__ import annotations
@@ -191,6 +209,12 @@ PARENT_MS = {"nn_tiled_wide": 0.4062, "ransac_score_fp32_1lane": 0.4431, "ransac
 FUSED_LAUNCHES = {"lane_mutual": 1, "ransac_score_bf16": 1, "ransac_score": 0,
                   "lane_nn_smalld": -(-ICP_ITERS // ICP_SOLVES_PER_NN)}
 LARGE_KERNELS = ("nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")
+# Path S: bench.py's stream phase (bench.py:487-517): a fresh mixed manifest
+# of arch / plate / scan pairs, window 128, every cloud at down_cap 896.
+STREAM_PAIRS = 384
+STREAM_WINDOW = 128
+STREAM_CAP = 896
+STREAM_GENERIC_PAIRS = 32
 
 # The large-cloud path: bench.py's large phase (make_benchmark_pair(1M, seed=0,
 # sigma=0.002), block 512, w 8, 4 restarts, point-to-plane) at two voxel
@@ -782,11 +806,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     batch_launches = batch_paths(dev, cfg, clouds, trues, moments)
 
+    # --- 6f. path S: the disk-to-result stream (registration/stream.py) ------
+    torch.cuda.empty_cache()
+    stream_launches = stream_paths(dev, cfg)
+
     # --- 7-10. the large-cloud path -----------------------------------------
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
-               **batch_launches, **large_launches}
+               **batch_launches, **stream_launches, **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -1687,6 +1715,220 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
         f"{min(n[0] for n in notes):.7f}, largest FPFH relative L1 {max(n[1] for n in notes):.3g}, "
         f"equal {sum(n[2] for n in notes)} of {len(notes)}")
     return out
+
+
+def stream_paths(dev, cfg) -> dict:
+    """Path S: the disk-to-result stream at bench.py's stream settings
+    (bench.py:487-517).  S1 ``stream_register_pairs`` over a fresh
+    STREAM_PAIRS-pair mixed manifest (fused, dense features, the retry),
+    counted and gated by ``stream_quality``, and run again without the
+    retry to show what the retry changed; S2 the first STREAM_WINDOW pairs
+    at half the window, equal to S1 within 1e-6; S3 the first
+    STREAM_GENERIC_PAIRS pairs on the generic path, within 0.5 deg and 0.02;
+    S4 pairs 0-2 on the CPU, within the CPU agreement limit; S5 window 1's
+    batched dense features equal to per-cloud ones, bit for bit.  Returns
+    {"S": the counts of S1}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.core.cloud import PointCloud
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.preprocess.dense import down_features_dense
+    from tpu3dm_torch.registration import stream
+    from tpu3dm_torch.registration.batch import pair_bits_shape
+
+    pp = cfg.preprocess
+    tmp = tempfile.mkdtemp(prefix="tpu3dm_torch_stream_")
+    try:
+        t0 = time.time()
+        paths, trues, moments = stream.make_stream_manifest(
+            tmp, STREAM_PAIRS, n_points=N_POINTS, sigma=0.01, family="mix")
+        write_s = time.time() - t0
+        gen = torch.Generator().manual_seed(29)
+        shape, _ = pair_bits_shape(STREAM_CAP, ransac_iterations=HYPOTHESES,
+                                   rescue_restarts=RESCUE_RESTARTS)
+        bits = draw_bits((STREAM_PAIRS,) + shape, gen)
+        retry_bits = draw_bits((STREAM_PAIRS, 1, STREAM_CAP), gen)
+        retry_extra = draw_bits((STREAM_PAIRS, 3, STREAM_CAP), gen)
+        kw = dict(down_cap=STREAM_CAP, ransac_iterations=HYPOTHESES, icp_iterations=ICP_ITERS,
+                  icp_solves_per_nn=ICP_SOLVES_PER_NN, approx_score=True,
+                  rescue_restarts=RESCUE_RESTARTS, retry_measure_warm=True,
+                  retry_bits=retry_bits, retry_extra_bits=retry_extra)
+
+        def run(n, window, device=dev, **over):
+            return stream.stream_register_pairs(paths[:n], cfg, window=window,
+                                                pair_bits=bits[:n], device=device,
+                                                **{**kw, "fuse_device": True, **over})
+
+        # --- S1: the stream, counted ----------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        res = run(STREAM_PAIRS, STREAM_WINDOW)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v.launches for k, v in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for k in ("lane_nn_smalld", "lane_mutual", "ransac_score_bf16"):
+            if counts[k] <= 0:
+                fail(f"path S1 launched no {k}: {counts}")
+        q = stream.stream_quality(res, trues, moments)
+        rot, rmse = fused_gate(torch.from_numpy(res.transforms), np.stack(trues),
+                               np.stack([m[0] for m in moments]),
+                               np.stack([m[1] for m in moments]))
+        fams = ("arch", "plate", "scan")
+        per_family = {f: (float(rot[i::3].max()), float(rmse[i::3].max()),
+                          int((rot[i::3] >= 2.0).sum()),
+                          sum(1 for j in res.retry_pairs if j % 3 == i))
+                      for i, f in enumerate(fams)}
+        done = np.asarray(res.window_done_s)
+        window_s = np.diff(np.concatenate([[0.0], done]))
+        log(f"path S1 (stream_register_pairs, fused, dense features): {STREAM_PAIRS} fresh mixed "
+            f"pairs of {N_POINTS} points, window {STREAM_WINDOW}, down_cap {STREAM_CAP}, "
+            f"{HYPOTHESES} hypotheses, {ICP_ITERS} ICP iterations / {ICP_SOLVES_PER_NN} solves a "
+            f"search, bf16 score, {RESCUE_RESTARTS} rescue restarts, the retry under fitness "
+            f"0.15 (measure_warm): manifest written in {write_s:.2f} s; wall {wall:.2f} s")
+        for i, (w_s, ing) in enumerate(zip(window_s, res.ingest_seconds)):
+            log(f"  window {i + 1}: {res.window_pairs[i]} pairs, {w_s * 1e3:.1f} ms to its "
+                f"resolve, host ingest {ing * 1e3:.1f} ms on the producer thread "
+                f"({ing / w_s:.0%} of the window's time"
+                f"{'; not overlapped: nothing precedes it' if i == 0 else ''})")
+        log(f"  steady {res.steady_pairs_per_sec:.2f} pairs/s over windows 2-{len(done)} plus the "
+            f"retry's warm run (window 1 pays first-use costs: kernel builds and CUDA "
+            f"initialisation where no earlier phase paid them; no compile), fresh "
+            f"{res.fresh_pairs_per_sec:.2f} pairs/s over {res.total_seconds:.2f} s; retry: "
+            f"{len(res.retry_pairs)} pairs in {res.retry_seconds:.2f} s; peak memory "
+            f"{peak:.2f} GiB; launches { {k: v for k, v in counts.items() if v} }")
+        log(f"  stream_quality: {json.dumps(q)}")
+        log("  per family (worst rot deg, worst alignment RMSE, pairs over 2 deg, retried): "
+            + "; ".join(f"{f} {v[0]:.4f} / {v[1]:.5f} / {v[2]} / {v[3]}"
+                        for f, v in per_family.items()))
+        if not q["quality_ok"]:
+            fail(f"path S1 quality gate: {q}")
+        # The same stream without the retry: S1's poses before the escalation.
+        before = run(STREAM_PAIRS, STREAM_WINDOW, retry_below_fitness=0.0)
+        rot0, rmse0 = fused_gate(torch.from_numpy(before.transforms), np.stack(trues),
+                                 np.stack([m[0] for m in moments]),
+                                 np.stack([m[1] for m in moments]))
+        over = {j: (float(rot0[j]), float(rot[j])) for j in range(STREAM_PAIRS)
+                if max(rot0[j], rot[j]) >= 2.0}
+        good = [j for j in res.retry_pairs if j not in over]
+        log(f"  without the retry: {int((rot0 >= 2.0).sum())} pairs over 2 deg, worst recovered "
+            f"alignment RMSE {rmse0[rot0 < 2.0].max():.5f}; pairs over 2 deg before or after the "
+            f"retry (deg before -> after): "
+            + (", ".join(f"{j} ({fams[j % 3]}) {a:.3f} -> {b:.3f}" for j, (a, b) in over.items())
+               or "none")
+            + f"; the {len(good)} other retried pairs' rotation error moved by at most "
+            f"{max((abs(rot[j] - rot0[j]) for j in good), default=0):.4f} deg")
+
+        # --- S2: window invariance ---------------------------------------------
+        half = run(STREAM_WINDOW, STREAM_WINDOW // 2)
+        gap = np.abs(half.transforms - res.transforms[:STREAM_WINDOW]).max(axis=(1, 2))
+        bad = np.nonzero(gap > 1e-6)[0]
+        for i in bad:
+            log(f"  path S2 pair {i} ({fams[i % 3]}): |T difference| {gap[i]:.3g}; fitness "
+                f"{res.ransac_fitness[i]:.6f} (S1) vs {half.ransac_fitness[i]:.6f}; retried "
+                f"{i in res.retry_pairs} (S1) / {i in half.retry_pairs}")
+        log(f"path S2 (the first {STREAM_WINDOW} pairs at window {STREAM_WINDOW // 2}): max "
+            f"|T difference| to S1 {gap.max():.3g} (limit 1e-6), {len(bad)} pairs outside; "
+            f"retried {len(half.retry_pairs)} (S1: "
+            f"{sum(1 for j in res.retry_pairs if j < STREAM_WINDOW)} of these pairs)")
+        if len(bad):
+            fail(f"path S2: {len(bad)} pairs differ from S1 by more than 1e-6")
+
+        # --- S3: the generic path ------------------------------------------------
+        generic = run(STREAM_GENERIC_PAIRS, STREAM_WINDOW, fuse_device=False)
+        rot3, t3 = apart(torch.from_numpy(generic.transforms),
+                         torch.from_numpy(res.transforms[:STREAM_GENERIC_PAIRS]))
+        log(f"path S3 (the first {STREAM_GENERIC_PAIRS} pairs, fuse_device=False: kNN features, "
+            f"capacity buckets {sorted(set(generic.bucket_of_pair))}): vs S1 rot {rot3:.4f} deg, "
+            f"t {t3:.3g} (limits 0.5, 0.02)")
+        if rot3 >= 0.5 or t3 >= 0.02:
+            g_rot, _ = fused_gate(torch.from_numpy(generic.transforms),
+                                  np.stack(trues[:STREAM_GENERIC_PAIRS]),
+                                  np.stack([m[0] for m in moments[:STREAM_GENERIC_PAIRS]]),
+                                  np.stack([m[1] for m in moments[:STREAM_GENERIC_PAIRS]]))
+            for i in range(STREAM_GENERIC_PAIRS):
+                r_i, t_i = apart(torch.from_numpy(generic.transforms[i:i + 1]),
+                                 torch.from_numpy(res.transforms[i:i + 1]))
+                if r_i >= 0.5 or t_i >= 0.02:
+                    log(f"  path S3 pair {i} ({fams[i % 3]}): rot {r_i:.4f} deg, t {t_i:.3g}; "
+                        f"to the truth: S1 {rot[i]:.4f} deg, generic {g_rot[i]:.4f} deg; "
+                        f"retried in S1 {i in res.retry_pairs}")
+            fail(f"path S3: the generic path differs from S1 by rot {rot3:.4f} deg, t {t3:.3g}")
+
+        # --- S4: the CPU -----------------------------------------------------------
+        t0 = time.time()
+        cpu = run(3, 3, device="cpu")
+        note = agree_cpu("path S4 pairs 0-2", torch.from_numpy(res.transforms[:3]),
+                         torch.from_numpy(cpu.transforms))
+        log(f"path S4 (pairs 0-2, one of each family, fused on the CPU with the same bits, "
+            f"retried {cpu.retry_pairs}): vs S1 {note}; {time.time() - t0:.1f} s")
+
+        # --- S5: batched dense features against per-cloud --------------------------
+        hosts = stream._iter_host_windows(paths[:STREAM_WINDOW], pp.voxel_size,
+                                          window=STREAM_WINDOW, workers=None, down_cap=STREAM_CAP)
+        _, pts, masks, _ = next(hosts)
+        hosts.close()
+        pts_d, masks_d = torch.from_numpy(pts).to(dev), torch.from_numpy(masks).to(dev)
+        clouds = PointCloud(pts_d, masks_d, torch.zeros_like(pts_d),
+                            torch.zeros(pts_d.shape[:2] + (0,), device=dev))
+
+        def dense(pc):
+            return down_features_dense(pc, pp.normal_radius, pp.fpfh_radius,
+                                       normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn)
+
+        dense(clouds)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        batched = dense(clouds)
+        end.record()
+        torch.cuda.synchronize()
+        dense_ms = start.elapsed_time(end)
+        planes = (torch.cuda.max_memory_allocated() - base) / (4 * len(pts) * STREAM_CAP ** 2)
+        start.record()
+        single = [dense(PointCloud(*(x[i] for x in (clouds.points, clouds.mask, clouds.normals,
+                                                    clouds.features))))
+                  for i in range(len(pts))]
+        end.record()
+        torch.cuda.synchronize()
+        single_ms = start.elapsed_time(end)
+        diff = max(max(float((s.normals - batched.normals[i]).abs().max()),
+                       float((s.features - batched.features[i]).abs().max()))
+                   for i, s in enumerate(single))
+        equal = sum(torch.equal(s.normals, batched.normals[i])
+                    and torch.equal(s.features, batched.features[i])
+                    for i, s in enumerate(single))
+        log(f"path S5 (down_features_dense on window 1's {len(pts)} clouds at capacity "
+            f"{STREAM_CAP}): batched {dense_ms:.2f} ms (CUDA events), {planes:.2f} [C, M, M] fp32 "
+            f"planes of temporaries at peak; per cloud {single_ms:.2f} ms "
+            f"({single_ms / len(pts):.2f} ms a cloud); {equal} of {len(pts)} clouds equal bit for "
+            f"bit, largest difference {diff:.3g}")
+        if equal != len(pts):
+            fail(f"path S5: {len(pts) - equal} clouds' batched dense features differ from "
+                 f"per-cloud ones (largest difference {diff:.3g})")
+
+        # --- the device-only rate and one profiled window --------------------------
+        rate = stream.measure_fused_device_rate(
+            cfg, window=STREAM_WINDOW, down_cap=STREAM_CAP, ransac_iterations=HYPOTHESES,
+            icp_iterations=ICP_ITERS, icp_solves_per_nn=ICP_SOLVES_PER_NN, approx_score=True,
+            rescue_restarts=RESCUE_RESTARTS, device=dev)
+        log(f"path S measure_fused_device_rate (window {STREAM_WINDOW} of random clouds on the "
+            f"device, features + fused step, median of 3): {rate:.2f} pairs/s")
+        step = stream._FusedWindow(cfg, HYPOTHESES, ICP_ITERS, ICP_SOLVES_PER_NN, True,
+                                   RESCUE_RESTARTS, rescue_modes=RESCUE_MODES,
+                                   sample_mode="roll", dense_features=True)
+        profile_report(lambda: step(pts_d, masks_d, bits[:STREAM_WINDOW], dev), "path S window 1")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"S": counts}
 
 
 def large_phases(dev, results: dict) -> dict:

@@ -1217,3 +1217,71 @@ def test_down_features_dense_cuda_matches_cpu(cuda_device):
                 for d in (cuda_device, "cpu")]
         assert outs[0].features.is_cuda
         _features_close(*outs)
+
+
+@pytest.mark.gpu
+def test_down_features_dense_batch_invariant_on_the_card(cuda_device):
+    """A cloud's dense features do not depend on the clouds that share its
+    call, its chunk, or its place in the batch: the stream's window
+    invariance rests on it (the three families at the stream's capacity)."""
+    from tpu3dm_torch.core.cloud import PointCloud
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess import dense
+    from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
+
+    pp = PipelineConfig.with_voxel_size(0.3).preprocess
+    cap = 896
+    clouds = []
+    for s in range(12):
+        for raw in make_benchmark_pair(20000, seed=s, sigma=0.01,
+                                       family=("arch", "plate", "scan")[s % 3])[:2]:
+            down = voxel_downsample_host(raw, 0.3, device="cpu")
+            n = int(down.mask.sum())
+            p, m = torch.zeros((cap, 3)), torch.zeros((cap,), dtype=torch.bool)
+            p[:n], m[:n] = down.points[:n], True
+            clouds.append((p, m))
+    pts = torch.stack([c[0] for c in clouds]).to(cuda_device)
+    msk = torch.stack([c[1] for c in clouds]).to(cuda_device)
+
+    def features(idx, plane_bytes=dense.DENSE_PLANE_BYTES):
+        old = dense.DENSE_PLANE_BYTES
+        dense.DENSE_PLANE_BYTES = plane_bytes
+        try:
+            pc = PointCloud(pts[idx], msk[idx], torch.zeros_like(pts[idx]),
+                            torch.zeros(pts[idx].shape[:2] + (0,), device=cuda_device))
+            out = dense.down_features_dense(pc, pp.normal_radius, pp.fpfh_radius,
+                                            normal_max_nn=pp.normal_max_nn,
+                                            fpfh_max_nn=pp.fpfh_max_nn)
+        finally:
+            dense.DENSE_PLANE_BYTES = old
+        return out.normals.cpu(), out.features.cpu()
+
+    every = torch.arange(len(clouds))
+    whole = features(every)
+    chunked = features(every, plane_bytes=4 * cap * cap * 5)
+    reordered = features(every.flip(0))
+    for i in range(len(clouds)):
+        alone = features(torch.tensor([i]))
+        for k in range(2):
+            assert torch.equal(whole[k][i], alone[k][0]), (i, k)
+            assert torch.equal(whole[k][i], chunked[k][i]), (i, k)
+            assert torch.equal(whole[k][i], reordered[k][len(clouds) - 1 - i]), (i, k)
+
+
+@pytest.mark.gpu
+def test_fit_rigid_horn_does_not_follow_the_batch_size(cuda_device):
+    """The refit's weighted Horn fit of one lane is the same bits alone in a
+    batch of 16, 64 or 384 fits: its sums over the rows do not take their
+    order from the batch count (a batched product's kernel does), so the
+    stream's window cannot change a registration."""
+    from tpu3dm_torch.registration.kabsch import fit_rigid_horn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n, m = 384, 896
+    p = torch.randn((n, m, 3), generator=gen, device=cuda_device)
+    q = p + 0.01 * torch.randn((n, m, 3), generator=gen, device=cuda_device)
+    w = (torch.rand((n, m), generator=gen, device=cuda_device) > 0.6).to(torch.float32)
+    whole = fit_rigid_horn(p, q, w)
+    for k in (16, 64):
+        assert torch.equal(fit_rigid_horn(p[:k], q[:k], w[:k]), whole[:k]), k

@@ -5,7 +5,7 @@ Each ``*.cu`` file in this directory compiles into one shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``).
 Every C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns ``cudaGetLastError()``.
-``host.cpp`` (the KD partition and the voxel grid of the large-cloud path)
+``host.cpp`` (the ASCII PLY parser, the KD partition and the voxel grid)
 compiles with the host C++ compiler (``$CXX``, else ``c++``) and the JAX
 package's native-tier flags, so its results equal that tier's.
 
@@ -14,7 +14,9 @@ name that hashes the source, the shared ``*.cuh`` headers and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  ``build()``
 compiles several sources at once, one compiler process each; a failed build
 raises.  Importing this module builds nothing and needs neither a compiler
-nor a GPU.
+nor a GPU.  One lock serialises every build and every first load, so
+threads that reach a library at once (the loader's thread pools, the
+stream's producer and consumer) build it once and load it once.
 
 A :class:`Kernel` is one C entry point.  Its ``launches`` counter goes up by
 one each time a wrapper launches it, so a run can show that its path went
@@ -28,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -48,6 +51,8 @@ FLOAT = ctypes.c_float
 
 # name -> Kernel, in definition order.
 KERNELS: dict[str, Kernel] = {}
+# Held around build() and every first load; reentrant, since a load builds.
+_BUILD_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -90,6 +95,11 @@ def build(sources=None) -> dict[str, str]:
     """
     if sources is None:
         sources = sorted(p.name for p in [*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cpp")])
+    with _BUILD_LOCK:
+        return _build(sources)
+
+
+def _build(sources) -> dict[str, str]:
     todo = [(src, library_path(src)) for src in sources]
     todo = [(src, out) for src, out in todo if not out.exists()]
     if not todo:
@@ -98,7 +108,7 @@ def build(sources=None) -> dict[str, str]:
     jobs = []
     for src, out in todo:
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [compilers[src], *_flags(src), "-o", str(tmp), str(SRC_DIR / src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -131,14 +141,16 @@ class Kernel:
         KERNELS[name] = self
 
     def _load(self):
-        path = library_path(self.source)
-        if not path.exists():
-            build([self.source])
-        fn = getattr(ctypes.CDLL(str(path)), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = INT
-        self._fn = fn
-        return fn
+        with _BUILD_LOCK:
+            if self._fn is None:
+                path = library_path(self.source)
+                if not path.exists():
+                    build([self.source])
+                fn = getattr(ctypes.CDLL(str(path)), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = INT
+                self._fn = fn
+            return self._fn
 
     def launch(self, device: torch.device, *args) -> None:
         """Launch on ``device``'s current stream; raise if CUDA refuses it.
@@ -169,20 +181,23 @@ _host_lib: ctypes.CDLL | None = None
 def host_library() -> ctypes.CDLL:
     """The host C++ library (``host.cpp``), built and loaded at first use."""
     global _host_lib
-    if _host_lib is None:
-        path = library_path(HOST_SOURCE)
-        if not path.exists():
-            build([HOST_SOURCE])
-        lib = ctypes.CDLL(str(path))
-        f64 = ctypes.POINTER(ctypes.c_double)
-        lib.t3n_voxel_downsample.restype = ctypes.c_long
-        lib.t3n_voxel_downsample.argtypes = [f64, ctypes.c_long, ctypes.c_double, f64,
-                                             ctypes.c_long]
-        lib.t3n_kd_perm.restype = None
-        lib.t3n_kd_perm.argtypes = [f64, ctypes.c_long, ctypes.c_long,
-                                    ctypes.POINTER(ctypes.c_long)]
-        _host_lib = lib
-    return _host_lib
+    with _BUILD_LOCK:
+        if _host_lib is None:
+            path = library_path(HOST_SOURCE)
+            if not path.exists():
+                build([HOST_SOURCE])
+            lib = ctypes.CDLL(str(path))
+            f64 = ctypes.POINTER(ctypes.c_double)
+            lib.t3n_parse_floats.restype = ctypes.c_long
+            lib.t3n_parse_floats.argtypes = [ctypes.c_char_p, ctypes.c_long, f64, ctypes.c_long]
+            lib.t3n_voxel_downsample.restype = ctypes.c_long
+            lib.t3n_voxel_downsample.argtypes = [f64, ctypes.c_long, ctypes.c_double, f64,
+                                                 ctypes.c_long]
+            lib.t3n_kd_perm.restype = None
+            lib.t3n_kd_perm.argtypes = [f64, ctypes.c_long, ctypes.c_long,
+                                        ctypes.POINTER(ctypes.c_long)]
+            _host_lib = lib
+        return _host_lib
 
 
 # Pair lanes per launch: the kernels put the lane on the grid's y axis.

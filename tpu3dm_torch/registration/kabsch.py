@@ -4,6 +4,13 @@ Horn's quaternion method: the optimal rotation is the dominant eigenvector
 of a traceless symmetric 4x4 matrix built from the weighted cross
 covariance (ops/sym4).  A quaternion never yields a reflection; a
 non-finite result falls back to the identity.
+
+The weighted sums over the M rows are elementwise products reduced with
+``torch.sum``, not batched matrix products: cuBLAS picks a batched
+product's kernel, and with it the order of a K = M sum, by the batch count,
+so a pair's fit (and through RANSAC's refit its registration) would follow
+the number of pairs beside it.  The reduction's order depends on M and the
+row width alone once the batch holds a dozen fits.
 """
 
 from __future__ import annotations
@@ -37,11 +44,11 @@ def fit_rigid_horn(
         w = torch.ones(p.shape[:-1], dtype=p.dtype, device=p.device)
     wsum = torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-12)
     wn = w / wsum
-    cp = torch.einsum("...m,...mi->...i", wn, p)
-    cq = torch.einsum("...m,...mi->...i", wn, q)
+    cp = torch.sum(wn[..., None] * p, dim=-2)
+    cq = torch.sum(wn[..., None] * q, dim=-2)
     pc = p - cp[..., None, :]
     qc = q - cq[..., None, :]
-    S = torch.einsum("...m,...ma,...mb->...ab", wn, pc, qc)
+    S = torch.sum((wn[..., None] * pc)[..., :, None] * qc[..., None, :], dim=-3)
     sxx, sxy, sxz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
     syx, syy, syz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
     szx, szy, szz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
