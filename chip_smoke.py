@@ -32,7 +32,9 @@ Phases (any failure exits non-zero and prints no ok line):
      (path F4's, "lane_mutual_bf16_cross"), both bit-equal to their plain
      versions (an in-order sum of exact products); the score's fp32 route at
      the rescore shape (128 fp32 hypotheses a lane over all 1024 rows, row
-     "ransac_score_rescore", inside the fp32 float64 bracket);
+     "ransac_score_rescore", inside the fp32 float64 bracket); the
+     ordered-row-sum kernel (row "row_sums", a port-only repair) at the
+     ICP's [2048, 27, 1024] rows, bit-equal to its plain version;
   5. the main path: fused_register_step over the 2048 lanes (4096
      hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
      search, bf16 score), launch counts zeroed just before and read just
@@ -101,6 +103,28 @@ Phases (any failure exits non-zero and prints no ok line):
      bits, within the CPU agreement limit; S5 window 1's 256 clouds: batched
      dense features equal to per-cloud ones bit for bit, both timed; then
      measure_fused_device_rate and one profiled window;
+  6g. path V, the serving tier (serve/): a RegistrationServer on loopback
+     port 0 at ServeConfig() on the card, prewarmed at caps 768 and 1024,
+     takes 512 requests from 8 client threads (half inline base64 pairs of
+     the 8 benchmark pairs, half path specs of 16 moved copies of pair 0's
+     source against that source as one shared target PLY), at
+     pipeline_depth 0 and then 1: every response ok and gated, req/s,
+     latency p50 / p95, queue / pack / device ms, micro-batch size,
+     shared-target requests and launches a micro-batch (kernels 1, 2, the
+     bf16 score and row_sums > 0 required); the engine alone on the same
+     requests (8 waiting clients, then all at once) and one profiled
+     micro-batch; request 0 alone bit-equal to request 0 of a 128-request
+     flood; ServeEngine(mesh=...) raising;
+  6h. path P, the single-pair pipeline: register_files on pair 0's two
+     PLYs at voxel 0.3 with restarts 1 and 4, cold and warm, launch counts
+     zeroed before and read after each call (the fp32 score and kernel 4
+     > 0 required), the profiler's stage times, each call gated; restarts
+     1 again on the CPU with the same bits, within the CPU limit;
+  6i. the card tests of the batch-size repair (pytest --noconftest on
+     tests/test_torch_kernels.py: the ordered-row-sum kernel bit-equal to
+     its plain version, one pair of the fused step bit-equal at 1, 2, 8 and
+     128 pairs, the Horn refit at 1-64 fits, the kNN features at 1, 16 and
+     256 clouds);
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -126,8 +150,8 @@ Phases (any failure exits non-zero and prints no ok line):
      B's warm call, 7 from path C's counted call, the approx and bf16-cross
      rows of kernel 2 from paths E and F4, the rescore row from F1; each
      row also lists its launches on every path, path I as "I" (I2's counted
-     call, all buckets), "I3" and "S" (S1's counted run)), then the ok
-     line, last.
+     call, all buckets), "I3", "S" (S1's counted run), "V" (the depth-0
+     flood), "P" and "P4" (path P's warm calls)), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -191,6 +215,13 @@ SOURCES = {
     "ransac_score_rescore": ("tpu3dm_torch/csrc/ransac_score.cu",
                              "tpu3dm/ops/ransac_score.py:124"),
 }
+# Kernels that replace no TPU kernel: (CUDA source, what the row's
+# "replaces" says).  row_sums orders the fused step's row sums, a port-only
+# repair of batch-size dependence (XLA's reductions on the TPU never had it).
+PORT_ONLY_SOURCES = {
+    "row_sums": ("tpu3dm_torch/csrc/row_sums.cu",
+                 "none: port-only repair (the row sums of tpu3dm/registration/fused.py:127)"),
+}
 # A row that times a kernel at a second shape or on other inputs, and that
 # kernel's name.
 ROW_KERNEL = {"ransac_score_fp32_1lane": "ransac_score", "nn_tiled_smalld_8192": "nn_tiled_smalld",
@@ -224,6 +255,22 @@ LARGE_PATHS = (
     ("A", 0.3, ("ransac_score", "nn_tiled_smalld", "nn_blocksparse")),
     ("B", 0.1, ("ransac_score", "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")),
 )
+# Path V: the serving tier (serve/) at ServeConfig's defaults: SERVE_CLIENTS
+# client threads send SERVE_REQUESTS requests, half inline pairs of the
+# PAIRS benchmark pairs, half path specs of SERVE_SOURCES moved copies of
+# pair 0's source against that source as one shared target PLY; then one
+# request alone against the same request first in a SERVE_FLOOD flood.
+SERVE_REQUESTS = 512
+SERVE_CLIENTS = 8
+SERVE_SOURCES = 16
+SERVE_FLOOD = 128
+SERVE_CAPS = [768, 1024]
+SERVE_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+# Path P: register_files on two arch PLYs at voxel 0.3, restarts 1 and 4.
+PIPELINE_RESTARTS = (1, 4)
+PIPELINE_KERNELS = ("ransac_score", "nn_tiled_smalld")
+# The card tests of the batch-size repair, run by pytest in the card-test phase.
+CARD_TESTS = "row_sums or batch_size or cloud_count"
 LARGE_GATE_ROT_DEG = 2.0
 LARGE_GATE_RMSE = 0.01
 AGREE_POINTS = 40_000  # path A on the card against the CPU, same sample bits
@@ -711,6 +758,7 @@ def main() -> int:
     del H, e, F, Ft, Hf, Ff, ck, cp, cf, diff, f_diff, sure, near
     results["ransac_score_rescore"] = rescore_case(H32, e32, F32, c, v, thr)
     del H32, e32, F32, c, v
+    results["row_sums"] = row_sums_case(dev, cap)
     torch.cuda.empty_cache()
     for name, r in results.items():
         launch = f" (the launch alone {r['launch_ms']:.4f} ms)" if "launch_ms" in r else ""
@@ -810,11 +858,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     stream_launches = stream_paths(dev, cfg)
 
+    # --- 6g-6h. paths V and P: the serving tier and the single-pair pipeline --
+    torch.cuda.empty_cache()
+    serve_launches = serve_paths(dev, cfg)
+    torch.cuda.empty_cache()
+    pipeline_launches = pipeline_paths(dev, cfg)
+
+    # --- 6i. the card tests of the batch-size repair (pytest) ----------------
+    card_tests()
+
     # --- 7-10. the large-cloud path -----------------------------------------
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
-               **batch_launches, **stream_launches, **large_launches}
+               **batch_launches, **stream_launches, **serve_launches, **pipeline_launches,
+               **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -825,9 +883,10 @@ def main() -> int:
     for name, r in results.items():
         kern = ROW_KERNEL.get(name, name)
         path = ROW_PATH.get(name, row_path.get(kern, "fused"))
+        source, replaces = {**SOURCES, **PORT_ONLY_SOURCES}[name]
         row = {
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": by_path[path][kern],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": by_path[path][kern],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"], "shape": r["shape"],
@@ -1587,8 +1646,9 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
     # Bucket mates: pairs 0-7 alone in their buckets, against the whole call.
     alone = register(pairs[:PAIRS], pair_bits=bits[:PAIRS])
     mates_gap = float(np.abs(alone.transforms - res.transforms[:PAIRS]).max())
-    if mates_gap > 1e-4:
-        fail(f"path I2: pairs 0-7 alone differ from the whole call by {mates_gap:.3g}")
+    if mates_gap != 0.0:
+        fail(f"path I2: pairs 0-7 alone differ from the whole call by {mates_gap:.3g} "
+             f"(bit-equal expected: a pair's sums do not follow its batch)")
     times, launch_only, resolve_only = [], [], []
     for _ in range(3):
         pending, t_launch = synced(lambda: batch.launch_pairs_batched(pairs, cfg, **kw))
@@ -1929,6 +1989,308 @@ def stream_paths(dev, cfg) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"S": counts}
+
+
+def row_sums_case(dev, cap: int) -> dict:
+    """The ordered-row-sum kernel (a port-only repair) at the fused step's
+    ICP shape: one row a normal-equation entry, LANES x 27 rows of ``cap``
+    products, held bit for bit against its plain version."""
+    import torch
+
+    from tpu3dm_torch.ops import rowsum
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((LANES, 27, cap), generator=gen, device=dev)
+    got, want = rowsum.row_sums(x), rowsum.row_sums_plain(x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        fail(f"row_sums: the kernel differs from its plain version by up to {err:.3g} "
+             f"(bit-equal expected)")
+    # Needed work: each input float read once and added once, one float a row out.
+    return dict(
+        agree=1.0, max_abs_err=err,
+        ms=cuda_ms(lambda: rowsum.row_sums(x), 20),
+        plain_ms=cuda_ms(lambda: rowsum.row_sums_plain(x), 3),
+        library_ms=cuda_ms(lambda: torch.sum(x, dim=-1), 20),
+        bound=bound_ms(4 * x.numel() + 4 * LANES * 27, (float(x.numel()), PEAK_FP32_OPS)),
+        shape=f"{LANES} lanes x 27 rows x {cap} (the ICP's normal equations)",
+    )
+
+
+def serve_paths(dev, cfg) -> dict:
+    """Path V: the serving tier at ServeConfig's defaults on the card.  A
+    RegistrationServer on loopback port 0, prewarmed at SERVE_CAPS, takes
+    SERVE_REQUESTS requests from SERVE_CLIENTS client threads: half inline
+    base64 pairs (the PAIRS benchmark pairs), half path specs of
+    SERVE_SOURCES moved, re-noised copies of pair 0's source against that
+    source as one shared target PLY (the resident-target route and the cloud
+    cache).  Every response ok and gated; run at pipeline_depth 0, then 1.
+    Then one request alone against the same request first among
+    SERVE_FLOOD, bit for bit, and the mesh argument raising.  Returns {"V":
+    the launch counts of the depth-0 run}."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    import torch
+
+    from tpu3dm_torch.core.se3 import exp_se3
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.ply import write_ply
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+    from tpu3dm_torch.serve import RegistrationClient, RegistrationServer, ServeConfig, ServeEngine
+
+    pairs = [make_benchmark_pair(N_POINTS, seed=s, sigma=0.01) for s in range(PAIRS)]
+    sp0 = pairs[0][0].astype(np.float32)
+    rng = np.random.default_rng(31)
+    moved = []  # (points, T_true): a copy moved by M registers onto sp0 by inv(M)
+    for _ in range(SERVE_SOURCES):
+        axis = rng.normal(size=3)
+        xi = np.concatenate([rng.uniform(-0.5, 0.5, 3),
+                             axis / np.linalg.norm(axis) * np.radians(rng.uniform(10, 40))])
+        M = exp_se3(torch.tensor(xi, dtype=torch.float64)).numpy()
+        pts = (sp0 @ M[:3, :3].T + M[:3, 3] + rng.normal(0, 0.01, sp0.shape)).astype(np.float32)
+        moved.append((pts, np.linalg.inv(M)))
+
+    def moments(p):
+        p = p.astype(np.float64)
+        return p.mean(0), p.T @ p / p.shape[0]
+
+    serve = ServeConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        target_path = f"{tmp}/target.ply"
+        write_ply(target_path, sp0)
+        source_paths = []
+        for k, (pts, _) in enumerate(moved):
+            source_paths.append(f"{tmp}/source{k}.ply")
+            write_ply(source_paths[-1], pts)
+        # Request i: even -> inline pair i/2 mod PAIRS; odd -> path source.
+        requests = []
+        for i in range(SERVE_REQUESTS):
+            if i % 2 == 0:
+                s, t, T = pairs[(i // 2) % PAIRS]
+                requests.append((s.astype(np.float32), t.astype(np.float32), T, moments(s)))
+            else:
+                k = (i // 2) % SERVE_SOURCES
+                requests.append((source_paths[k], target_path, moved[k][1],
+                                 moments(moved[k][0])))
+
+        def flood(depth: int):
+            server = RegistrationServer(port=0, pipeline=cfg, device=dev,
+                                        serve=dataclasses.replace(serve, pipeline_depth=depth))
+            with server:
+                prewarm_s = server.prewarm(caps=SERVE_CAPS, batch_sizes=[SERVE_CLIENTS])
+                responses, errors = [None] * SERVE_REQUESTS, []
+
+                def client(c):
+                    try:
+                        with RegistrationClient(server.host, server.port, timeout=600) as cl:
+                            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                                responses[i] = cl.register(requests[i][0], requests[i][1])
+                    except Exception as e:  # noqa: BLE001 - failed below
+                        errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.time()
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(SERVE_CLIENTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=900)
+                wall = time.time() - t0
+                counts = {k: v.launches for k, v in KERNELS.items()}
+                st = server.engine.stats()
+                cache = dict(hits=server.cache.hits, misses=server.cache.misses)
+            if errors or any(th.is_alive() for th in threads) or None in responses:
+                fail(f"path V depth {depth}: {len(errors)} failed clients: {errors[:3]}")
+            T = torch.tensor(np.stack([r["transformation"] for r in responses]))
+            T_true = np.stack([r[2] for r in requests])
+            mu = np.stack([r[3][0] for r in requests])
+            M2 = np.stack([r[3][1] for r in requests])
+            worst = gate_lanes(f"path V depth {depth}", T, T_true, mu, M2)
+            for k in SERVE_KERNELS:
+                if counts[k] == 0:
+                    fail(f"path V depth {depth}: {k} was never launched ({counts})")
+            n_b = st["batches"]
+            lat = st["latency_ms"]
+            log(f"path V depth {depth} ({SERVE_REQUESTS} requests, {SERVE_CLIENTS} clients, "
+                f"ServeConfig defaults, prewarm {prewarm_s:.2f} s): {wall:.2f} s -> "
+                f"{SERVE_REQUESTS / wall:.1f} req/s; latency p50 {lat['p50']:.1f} ms, p95 "
+                f"{lat['p95']:.1f} ms; queue p50 {st['queue_ms']['p50']:.2f} ms, pack p50 "
+                f"{st['pack_ms_per_batch']['p50']:.1f} ms, device p50 "
+                f"{st['device_ms_per_batch']['p50']:.2f} ms a micro-batch; {n_b} micro-batches, "
+                f"mean size {st['mean_batch_size']:.2f}, max {st['max_batch_size']}; buckets "
+                f"{st['buckets']}; shared-target requests {st['shared_target_requests']}; cloud "
+                f"cache {cache}; launches a micro-batch "
+                f"{ {k: round(counts[k] / n_b, 2) for k in SERVE_KERNELS} }; {worst}")
+            return counts
+
+        counts0 = flood(0)
+        flood(1)
+
+    # One request alone, and the same request first among SERVE_FLOOD.
+    pp = cfg.preprocess
+
+    def prep(p):
+        return preprocess_points_batch([p], pp, full_normals=False, device=dev)[0]
+
+    target = prep(sp0)
+    shared = [prep(p) for p, _ in moved]
+    inline = [(prep(s.astype(np.float32)), prep(t.astype(np.float32))) for s, t, _ in pairs]
+    # Odd requests: inline pairs, each its own cloud objects (as the server
+    # decodes them), so they take the pair route; even ones the shared target.
+    flood_pairs = [(shared[i % SERVE_SOURCES], target) if i % 2 == 0 else
+                   tuple(dataclasses.replace(c) for c in inline[i % PAIRS])
+                   for i in range(SERVE_FLOOD)]
+    with ServeEngine(cfg, serve, device=dev) as eng:
+        solo = eng.register(*flood_pairs[0], timeout=600)
+    with ServeEngine(cfg, serve, device=dev) as eng:
+        futs = [eng.submit(*p) for p in flood_pairs]
+        in_flood = futs[0].result(timeout=600)
+        for f in futs[1:]:
+            f.result(timeout=600)
+        st = eng.stats()
+    same = (np.array_equal(solo.transformation, in_flood.transformation)
+            and solo.fitness == in_flood.fitness and solo.inlier_rmse == in_flood.inlier_rmse)
+    gap = float(np.abs(solo.transformation - in_flood.transformation).max())
+    if not same:
+        fail(f"path V: request 0 alone differs from request 0 of a {SERVE_FLOOD}-request flood "
+             f"by {gap:.3g} (bit-equal expected)")
+    log(f"path V: request 0 alone (a micro-batch of 1, the pair route) equals request 0 of a "
+        f"{SERVE_FLOOD}-request flood ({st['batches']} micro-batches, mean size "
+        f"{st['mean_batch_size']:.1f}, {st['shared_target_requests']} on the resident route) "
+        f"bit for bit")
+    # The engine alone on the flood's workload, its clouds preprocessed once:
+    # SERVE_CLIENTS threads each waiting for its request before sending the
+    # next (as the clients do), then all SERVE_REQUESTS submitted at once; and
+    # one profiled micro-batch of SERVE_CLIENTS requests.
+    work = [flood_pairs[i % SERVE_FLOOD] if i % 2 == 0 else
+            tuple(dataclasses.replace(c) for c in flood_pairs[i % SERVE_FLOOD])
+            for i in range(SERVE_REQUESTS)]
+    for mode in ("clients", "at once"):
+        with ServeEngine(cfg, serve, device=dev) as eng:
+            t0 = time.time()
+            if mode == "clients":
+                def client(c, eng=eng):
+                    for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                        eng.register(*work[i], timeout=600)
+
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(SERVE_CLIENTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=900)
+            else:
+                for f in [eng.submit(*w) for w in work]:
+                    f.result(timeout=600)
+            wall = time.time() - t0
+            st = eng.stats()
+            if mode == "clients":
+                profile_report(lambda eng=eng: [f.result(timeout=600) for f in [
+                    eng.submit(*w) for w in work[:SERVE_CLIENTS]]],
+                    f"path V engine, one micro-batch of {SERVE_CLIENTS}")
+        log(f"path V engine alone ({mode}, {SERVE_REQUESTS} preprocessed requests): {wall:.2f} s "
+            f"-> {SERVE_REQUESTS / wall:.1f} req/s; latency p50 {st['latency_ms']['p50']:.1f} "
+            f"ms; pack p50 {st['pack_ms_per_batch']['p50']:.1f} ms, device p50 "
+            f"{st['device_ms_per_batch']['p50']:.2f} ms a micro-batch; {st['batches']} "
+            f"micro-batches, mean size {st['mean_batch_size']:.2f}")
+    try:
+        ServeEngine(cfg, serve, mesh=object(), device=dev)
+    except NotImplementedError:
+        log("path V: ServeEngine(mesh=...) raises NotImplementedError")
+    else:
+        fail("path V: ServeEngine(mesh=...) did not raise")
+    return {"V": counts0}
+
+
+def pipeline_paths(dev, cfg) -> dict:
+    """Path P: ``register_files`` on two PAIRS-benchmark arch PLYs
+    (make_benchmark_pair(N_POINTS, seed=0, sigma=0.01), written by the
+    port's write_ply) at voxel 0.3, with restarts 1 and 4, each cold and
+    warm, launch counts zeroed before and read after each call, the stage
+    times from the port's profiler, each call gated (< 2 deg, alignment RMSE
+    < 0.1); restarts 1 again on the CPU with the same bits.  Returns {"P":
+    restarts 1's warm counts, "P4": restarts 4's}."""
+    import tempfile
+
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.ply import write_ply
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.registration.pipeline import register_files
+    from tpu3dm_torch.registration.ransac import chunk_count
+    from tpu3dm_torch.utils.profiler import Profiler
+
+    sp, tp, T_true = make_benchmark_pair(N_POINTS, seed=0, sigma=0.01)
+    sp, tp = sp.astype(np.float32), tp.astype(np.float32)
+    mu, M2 = sp.astype(np.float64).mean(0), sp.T.astype(np.float64) @ sp / sp.shape[0]
+    r = cfg.ransac
+    shape = (chunk_count(r.max_iterations, r.batch_size), r.batch_size, 2)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, tgt = f"{tmp}/source.ply", f"{tmp}/target.ply"
+        write_ply(src, sp)
+        write_ply(tgt, tp)
+        for restarts in PIPELINE_RESTARTS:
+            lead = () if restarts == 1 else (restarts,)
+            bits = draw_bits(lead + shape, torch.Generator().manual_seed(restarts))
+            walls = []
+            for run in ("cold", "warm"):
+                Profiler.reset()
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.time()
+                res = register_files(src, tgt, cfg, sample_bits=bits, restarts=restarts,
+                                     device=dev)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+                counts = {k: v.launches for k, v in KERNELS.items()}
+                stages = {k: round(v.total * 1e3, 1) for k, v in Profiler.get_stats().items()}
+                for k in PIPELINE_KERNELS:
+                    if counts[k] == 0:
+                        fail(f"path P restarts {restarts} ({run}): {k} was never launched")
+            worst = gate_lanes(f"path P restarts {restarts}", res.transformation[None],
+                               T_true[None], mu[None], M2[None])
+            out["P" if restarts == 1 else f"P{restarts}"] = counts
+            note = ""
+            if restarts == 1:
+                t0 = time.time()
+                ref = register_files(src, tgt, cfg, sample_bits=bits, device="cpu")
+                cpu_s = time.time() - t0
+                note = (f"; CPU ({cpu_s:.1f} s): " + agree_cpu(
+                    "path P", res.transformation[None], ref.transformation[None]))
+            log(f"path P restarts {restarts} (register_files, {N_POINTS} + {N_POINTS} points, "
+                f"voxel {cfg.preprocess.voxel_size}): cold {walls[0]:.3f} s, warm "
+                f"{walls[1]:.3f} s; warm stages (ms) {stages}; RANSAC fitness "
+                f"{float(res.ransac.fitness):.4f}, {int(res.ransac.iterations)} hypotheses; ICP "
+                f"{int(res.icp.iterations)} iterations, fitness {float(res.icp.fitness):.4f}, "
+                f"rmse {float(res.icp.inlier_rmse):.5f}; launches "
+                f"{ {k: counts[k] for k in PIPELINE_KERNELS} }; {worst}{note}")
+    return out
+
+
+def card_tests() -> None:
+    """The card tests of the batch-size repair (tests/test_torch_kernels.py,
+    CARD_TESTS): the ordered-row-sum kernel bit-equal to its plain version;
+    one pair of fused_register_step with batch.py's knobs bit-equal alone and
+    in batches of 2, 8 and 128; each cloud's kNN features bit-equal at 1, 16
+    and 256 clouds a call."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "tests/test_torch_kernels.py", "-k", CARD_TESTS],
+        capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0:
+        fail("card tests failed:\n" + "\n".join(lines[-40:]) + out.stderr[-2000:])
+    log(f"card tests ({CARD_TESTS}): {lines[-1] if lines else ''} in {time.time() - t0:.1f} s")
 
 
 def large_phases(dev, results: dict) -> dict:

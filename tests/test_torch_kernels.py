@@ -15,11 +15,11 @@ import torch
 from tpu3dm_torch.core.se3 import exp_so3
 from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
 from tpu3dm_torch.ops import nn as tnn
-from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score
+from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score, rowsum
 
 ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "lane_mutual_bf16_cross", "ransac_score",
                "ransac_score_bf16",
-               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide"}
+               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide", "row_sums"}
 
 
 @pytest.fixture
@@ -45,6 +45,7 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     tnn.nn_search_tiled(torch.rand(8, 33), torch.rand(16, 33))
     nn_sparse.nn_search_table(torch.rand(8, 3), torch.rand(16, 3),
                               torch.zeros(2, 2, dtype=torch.int32), block=4)
+    rowsum.row_sums(torch.rand(3, 40))
     assert set(KERNELS) == ALL_KERNELS
     assert all(k.launches == 0 for k in KERNELS.values())
 
@@ -1271,10 +1272,11 @@ def test_down_features_dense_batch_invariant_on_the_card(cuda_device):
 
 @pytest.mark.gpu
 def test_fit_rigid_horn_does_not_follow_the_batch_size(cuda_device):
-    """The refit's weighted Horn fit of one lane is the same bits alone in a
-    batch of 16, 64 or 384 fits: its sums over the rows do not take their
-    order from the batch count (a batched product's kernel does), so the
-    stream's window cannot change a registration."""
+    """The refit's weighted Horn fit of one lane is the same bits alone and
+    in a batch of 2, 8, 16, 64 or 384 fits: its sums over the rows do not
+    take their order from the batch count (a batched product's kernel and
+    ``torch.sum`` below a dozen rows do), so neither the stream's window nor
+    a serving micro-batch can change a registration."""
     from tpu3dm_torch.registration.kabsch import fit_rigid_horn
 
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -1283,5 +1285,129 @@ def test_fit_rigid_horn_does_not_follow_the_batch_size(cuda_device):
     q = p + 0.01 * torch.randn((n, m, 3), generator=gen, device=cuda_device)
     w = (torch.rand((n, m), generator=gen, device=cuda_device) > 0.6).to(torch.float32)
     whole = fit_rigid_horn(p, q, w)
-    for k in (16, 64):
+    for k in (1, 2, 8, 16, 64):
         assert torch.equal(fit_rigid_horn(p[:k], q[:k], w[:k]), whole[:k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 31, 32, 33, 1000, 1024, 20000])
+def test_row_sums_kernel_equals_plain(cuda_device, m):
+    """The ordered-row-sum kernel against its plain version, bit for bit,
+    on rows from one to thousands, ragged widths and signed values."""
+    gen = torch.Generator().manual_seed(m)
+    for rows in (1, 27, 2048 * 27):
+        if rows * m > 1 << 26:
+            continue
+        x = torch.randn((rows, m), generator=gen) * torch.logspace(-3, 3, m)
+        reset_launch_counts()
+        card = rowsum.row_sums(x.to(cuda_device))
+        assert KERNELS["row_sums"].launches == 1
+        assert torch.equal(card.cpu(), rowsum.row_sums_plain(x)), (rows, m)
+
+
+@pytest.mark.gpu
+def test_row_sums_kernel_takes_only_float32(cuda_device):
+    with pytest.raises(TypeError):
+        rowsum.row_sums(torch.zeros((2, 40), dtype=torch.float64, device=cuda_device))
+
+
+def _fused_batch_inputs(device, n_pairs=8, cap=1024):
+    """Eight arch pairs of 20,000 points at voxel 0.3, each padded to
+    ``cap`` as batch.py pads a bucket, and the batch API's knobs."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+    from tpu3dm_torch.registration import batch
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    raw = [c for s in range(n_pairs) for c in make_benchmark_pair(20000, seed=s, sigma=0.01)[:2]]
+    procs = preprocess_points_batch(raw, cfg.preprocess, full_normals=False, device=device)
+    padded = [batch._at_cap(batch._tight(p), cap, device) for p in procs]
+    knobs = batch._Knobs.of(cfg, ransac_iterations=4096, icp_iterations=8, icp_solves_per_nn=2,
+                            approx_score=True, sample_mode="roll")
+    return padded, knobs
+
+
+def _fused_stages(src, tgt, bits, knobs):
+    """The stages of ``fused_register_step`` with batch.py's knobs, as the
+    step runs them: (name, output) in order."""
+    from tpu3dm_torch.parallel.multipair import ransac_pair_step
+    from tpu3dm_torch.registration import fused
+
+    sp, sf, sm = src
+    tp, tf, tm, tn = tgt
+    route = fused.nn_route("values_pk")
+    frame_c = fused._pn_center(tp, tm)
+    sp = (sp - frame_c[:, None, :]).contiguous()
+    tp = (tp - frame_c[:, None, :]).contiguous()
+    q_all, valid = fused.correspondences(sf, tf, sm, tm, tp, approx=False, route=route)
+    T, count = ransac_pair_step(
+        sp, q_all, valid, bits, dist_thresh=knobs.dist_thresh,
+        iterations=knobs.ransac_iterations, batch_size=min(knobs.ransac_iterations, 4096),
+        approx_score=knobs.approx_score, score_subset=knobs.score_subset,
+        rescore_top=knobs.rescore_top)
+    T_icp, rmse = fused.icp_polish(T, sp, sm, tp, tm, tn, icp_thresh=knobs.icp_thresh,
+                                   icp_iterations=knobs.icp_iterations,
+                                   icp_solves_per_nn=knobs.icp_solves_per_nn, f16_payload=True)
+    return [("frame centre", frame_c), ("correspondences", q_all), ("valid", valid),
+            ("RANSAC + refit", T), ("RANSAC count", count), ("ICP", T_icp), ("ICP rmse", rmse),
+            ("world pose", fused._unshift(T_icp, frame_c))]
+
+
+@pytest.mark.gpu
+def test_fused_step_pair_does_not_follow_the_batch_size(cuda_device):
+    """One pair through ``fused_register_step`` with batch.py's knobs
+    (``values_pk``, fp32 features, bf16 score, 2 solves a search) is the
+    same bits alone and in batches of 2, 8 and 128 pairs: the serving
+    engine's micro-batches run at every size.  A difference names the
+    first stage (in the step's order) where lane 0 differs."""
+    from tpu3dm_torch.parallel.multipair import draw_bits
+
+    padded, knobs = _fused_batch_inputs(cuda_device)
+    n = len(padded) // 2
+    bits = draw_bits((128,) + knobs.bits_shape(1024)[0], torch.Generator().manual_seed(5))
+
+    def run(b):
+        lanes = [i % n for i in range(b)]
+        src = [torch.stack([padded[2 * i][k] for i in lanes]) for k in (0, 1, 2)]
+        tgt = [torch.stack([padded[2 * i + 1][k] for i in lanes]) for k in (0, 1, 2, 3)]
+        stages = _fused_stages(src, tgt, bits[:b].to(cuda_device), knobs)
+        step = knobs.step(src, tgt, bits[:b], None, cuda_device)
+        return stages, step
+
+    ref_stages, ref_step = run(128)
+    for b in (1, 2, 8):
+        stages, step = run(b)
+        first = next(((name, float((out[0].double() - ref[0].double()).abs().max()))
+                      for (name, out), (_, ref) in zip(stages, ref_stages)
+                      if not torch.equal(out[0], ref[0])), None)
+        assert first is None, f"B={b}: lane 0 first differs from B=128 at {first}"
+        for k in range(3):
+            assert torch.equal(step[k][0], ref_step[k][0]), (b, k)
+
+
+@pytest.mark.gpu
+def test_knn_features_do_not_follow_the_cloud_count(cuda_device):
+    """``preprocess_points_batch(..., full_normals=False)``, the kNN feature
+    route of the server (one cloud a request) and the stream's generic
+    path: each cloud's down normals and features are the same bits at C =
+    1, 16 and 256 clouds a call (one down capacity for all)."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+
+    pp = PipelineConfig.with_voxel_size(0.3).preprocess
+    clouds = [c for s in range(128) for c in make_benchmark_pair(20000, seed=s, sigma=0.01)[:2]]
+
+    def feats(cs):
+        out = preprocess_points_batch(cs, pp, full_normals=False, down_cap=1024)
+        return [(p.down.normals.cpu(), p.down.features.cpu()) for p in out]
+
+    whole = feats(clouds)
+    sixteen = feats(clouds[:16])
+    one = feats(clouds[:1])
+    for i in range(16):
+        for k in range(2):
+            assert torch.equal(sixteen[i][k], whole[i][k]), (i, k)
+    for k in range(2):
+        assert torch.equal(one[0][k], whole[0][k]), k

@@ -56,7 +56,7 @@ def test_import_needs_no_triton_nvcc_or_gpu():
         "                             'ransac_score',\n"
         "                             'ransac_score_bf16',\n"
         "                             'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse',\n"
-        "                             'lane_nn_wide'}, csrc.KERNELS\n"
+        "                             'lane_nn_wide', 'row_sums'}, csrc.KERNELS\n"
         "assert all(k._fn is None for k in csrc.KERNELS.values())\n"
         "assert csrc._host_lib is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu3dm')]\n"
@@ -165,4 +165,19 @@ def test_chip_smoke_has_a_row_for_every_kernel():
     from tpu3dm_torch.csrc import KERNELS
     from tpu3dm_torch.ops import nn, nn_lane, nn_sparse, ransac_score  # noqa: F401
 
-    assert {SMOKE.ROW_KERNEL.get(row, row) for row in SMOKE.SOURCES} == set(KERNELS)
+    from tpu3dm_torch.ops import rowsum  # noqa: F401
+
+    rows = [*SMOKE.SOURCES, *SMOKE.PORT_ONLY_SOURCES]
+    assert {SMOKE.ROW_KERNEL.get(row, row) for row in rows} == set(KERNELS)
+
+
+@pytest.mark.parametrize("row", sorted(SMOKE.PORT_ONLY_SOURCES))
+def test_chip_smoke_port_only_row_names_its_source(row):
+    """A kernel that replaces no TPU kernel names its CUDA source and says
+    so in its row's "replaces"."""
+    from tpu3dm_torch.csrc import KERNELS
+    from tpu3dm_torch.ops import rowsum  # noqa: F401
+
+    source, replaces = SMOKE.PORT_ONLY_SOURCES[row]
+    assert source == f"tpu3dm_torch/csrc/{KERNELS[row].source}"
+    assert replaces.startswith("none: port-only repair")

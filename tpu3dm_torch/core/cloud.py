@@ -126,3 +126,17 @@ def from_reference_arrays(d: dict[str, np.ndarray], *, device=None) -> PointClou
         normals=torch.from_numpy(normals.copy()).to(dev),
         features=torch.from_numpy(features.copy()).to(dev),
     )
+
+
+def to_numpy(pc: PointCloud) -> dict[str, np.ndarray]:
+    """Strip the padding and return host arrays: points, and the normals
+    (when any is non-zero) and features (when the cloud has any) of the
+    valid rows."""
+    mask = pc.mask.cpu().numpy()
+    out = {"points": pc.points.cpu().numpy()[mask]}
+    normals = pc.normals.cpu().numpy()
+    if normals.shape[-1] == 3 and np.any(normals):
+        out["normals"] = normals[mask]
+    if pc.features.shape[-1] > 0:
+        out["features"] = pc.features.cpu().numpy()[mask]
+    return out

@@ -4,13 +4,46 @@ Transforms are ``[..., 4, 4]`` tensors; twists ``xi`` are ``[..., 6]`` in the
 JAX package's order ``[rho(3), w(3)]``.  The exp and log maps keep the
 reference's small-angle (and, for ``log_so3``, near-pi) branches, as
 elementwise selects.
+
+``apply`` and ``exp_se3`` take ``ordered=True`` from the batched steps
+(registration/fused.py): their small products become elementwise sums in a
+fixed order (``ops.rowsum``) instead of batched GEMMs, whose kernel, and so
+whose last bits, follow the number of transforms in the call.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu3dm_torch.ops.rowsum import chain_sum, small_matmul, small_matvec
+
 _EPS = 1e-9
+
+
+def identity(device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device)
+
+
+def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Assemble a 4x4 transform from rotation ``[3, 3]`` and translation ``[3]``."""
+    T = torch.zeros((4, 4), dtype=R.dtype, device=R.device)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    T[3, 3] = 1.0
+    return T
+
+
+def rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
+def translation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Matrix product A @ B (apply B first, then A)."""
+    return A @ B
 
 
 def inverse(T: torch.Tensor) -> torch.Tensor:
@@ -24,10 +57,13 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def apply(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply ``[..., 4, 4]`` transforms to ``[..., N, 3]`` points: ``p R^T + t``."""
+def apply(T: torch.Tensor, points: torch.Tensor, *, ordered: bool = False) -> torch.Tensor:
+    """Apply ``[..., 4, 4]`` transforms to ``[..., N, 3]`` points: ``p R^T + t``
+    (``ordered``: see the module docstring)."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
+    if ordered:
+        return small_matvec(R[..., None, :, :], points) + t[..., None, :]
     return torch.einsum("...nj,...ij->...ni", points, R) + t[..., None, :]
 
 
@@ -64,18 +100,19 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return eye + A[..., None, None] * W + B[..., None, None] * (W @ W)
 
 
-def exp_se3(xi: torch.Tensor) -> torch.Tensor:
-    """se(3) exponential: ``xi = [rho(3), w(3)] -> [..., 4, 4]``."""
+def exp_se3(xi: torch.Tensor, *, ordered: bool = False) -> torch.Tensor:
+    """se(3) exponential: ``xi = [rho(3), w(3)] -> [..., 4, 4]`` (``ordered``:
+    see the module docstring)."""
     rho, w = xi[..., :3], xi[..., 3:]
-    A, B, C = _coeffs(torch.sum(w * w, dim=-1))
+    A, B, C = _coeffs(chain_sum(w * w) if ordered else torch.sum(w * w, dim=-1))
     W = hat(w)
-    WW = W @ W
+    WW = small_matmul(W, W) if ordered else W @ W
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
     R = eye + A[..., None, None] * W + B[..., None, None] * WW
     V = eye + B[..., None, None] * W + C[..., None, None] * WW
     out = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
     out[..., :3, :3] = R
-    out[..., :3, 3] = torch.einsum("...ij,...j->...i", V, rho)
+    out[..., :3, 3] = small_matvec(V, rho) if ordered else torch.einsum("...ij,...j->...i", V, rho)
     out[..., 3, 3] = 1.0
     return out
 
@@ -118,3 +155,48 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     Vinv = eye - 0.5 * W + coef[..., None, None] * (W @ W)
     rho = torch.einsum("...ij,...j->...i", Vinv, t)
     return torch.cat([rho, w], dim=-1)
+
+
+def euler_zyx(angles: torch.Tensor) -> torch.Tensor:
+    """R = Rz @ Ry @ Rx from ``[..., 3]`` angles (ax, ay, az): the
+    reference visualizer's random-transform convention."""
+    ax, ay, az = angles[..., 0], angles[..., 1], angles[..., 2]
+    cx, sx = torch.cos(ax), torch.sin(ax)
+    cy, sy = torch.cos(ay), torch.sin(ay)
+    cz, sz = torch.cos(az), torch.sin(az)
+    one, zero = torch.ones_like(ax), torch.zeros_like(ax)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    Rx = mat([[one, zero, zero], [zero, cx, -sx], [zero, sx, cx]])
+    Ry = mat([[cy, zero, sy], [zero, one, zero], [-sy, zero, cy]])
+    Rz = mat([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
+    return Rz @ Ry @ Rx
+
+
+def random_transform(
+    generator: torch.Generator | None,
+    center: torch.Tensor,
+    *,
+    max_angle: float = torch.pi / 6,
+    max_translation: float = 0.1,
+) -> torch.Tensor:
+    """Random rigid perturbation about ``center`` ([3]): per-axis uniform
+    angles in +-max_angle composed ZYX, a uniform translation in
+    +-max_translation, the rotation taken about ``center``.  The angles,
+    then the translation, are drawn on the CPU from ``generator`` (JAX
+    draws them from ``split(key)``; the two streams differ)."""
+    center = torch.as_tensor(center, dtype=torch.float32)
+    angles = (torch.rand(3, generator=generator) * 2.0 - 1.0) * max_angle
+    trans = (torch.rand(3, generator=generator) * 2.0 - 1.0) * max_translation
+    angles, trans = angles.to(center.device), trans.to(center.device)
+    R = euler_zyx(angles)
+    return make(R, -R @ center + center + trans)
+
+
+def rotation_geodesic_deg(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Angle (degrees) between two rotations."""
+    M = Ra @ Rb.transpose(-1, -2)
+    trace = M[..., 0, 0] + M[..., 1, 1] + M[..., 2, 2]
+    return torch.rad2deg(torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)))

@@ -47,6 +47,7 @@ HOST_SOURCE = "host.cpp"
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+I64 = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 # name -> Kernel, in definition order.

@@ -28,6 +28,7 @@ from tpu3dm_torch.csrc import (
     dispatch,
 )
 from tpu3dm_torch.ops.nn import lane_slices
+from tpu3dm_torch.ops.rowsum import chain_sum
 
 FEAT_DIM = 16  # 15 used + 1 zero pad
 SCORE_ARGS = [PTR, PTR, PTR, PTR, PTR, FLOAT, PTR, INT, INT, INT]
@@ -42,7 +43,7 @@ def corres_features(p: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, tor
     outer = (q[..., :, None] * p[..., None, :]).reshape(p.shape[:-1] + (9,))
     pad = torch.zeros(p.shape[:-1] + (1,), dtype=p.dtype, device=p.device)
     F = torch.cat([p, outer, q, pad], dim=-1)
-    c = torch.sum(p * p, dim=-1) + torch.sum(q * q, dim=-1)
+    c = chain_sum(p * p) + chain_sum(q * q)
     return F, c
 
 

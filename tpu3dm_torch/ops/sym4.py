@@ -1,7 +1,8 @@
 """Dominant eigenvector of symmetric traceless 4x4 matrices (port of tpu3dm/ops/sym4.py).
 
 The closed form of the JAX package, kept as it is (``torch.linalg.eigh``
-differs in sign and rounding):
+differs in sign and rounding), its 4x4 products and sums elementwise in a
+fixed order (``ops.rowsum``), so a matrix's bits do not follow its batch:
 
   1. lambda_max by 24 Newton steps on the characteristic quartic
      x^4 + p x^2 + q x + r, from the Frobenius upper bound;
@@ -13,12 +14,14 @@ from __future__ import annotations
 
 import torch
 
+from tpu3dm_torch.ops.rowsum import chain_sum, small_matmul
+
 _NEWTON_ITERS = 24
 _MINOR_IDX = [(1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)]
 
 
 def _trace(M: torch.Tensor) -> torch.Tensor:
-    return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+    return chain_sum(torch.diagonal(M, dim1=-2, dim2=-1))
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:
@@ -44,9 +47,9 @@ def _det4(A: torch.Tensor) -> torch.Tensor:
 def dominant_eigvec_sym4(N: torch.Tensor) -> torch.Tensor:
     """Unit eigenvector ``[..., 4]`` for the largest eigenvalue of
     ``[..., 4, 4]`` symmetric traceless matrices."""
-    N2 = N @ N
+    N2 = small_matmul(N, N)
     p = -0.5 * _trace(N2)
-    q = -_trace(N2 @ N) / 3.0
+    q = -_trace(small_matmul(N2, N)) / 3.0
     r = _det4(N)
     lam = torch.sqrt(torch.clamp_min(-2.0 * p, 0.0)) + 1e-6
     for _ in range(_NEWTON_ITERS):
@@ -70,7 +73,7 @@ def dominant_eigvec_sym4(N: torch.Tensor) -> torch.Tensor:
     diag = torch.stack([adj_cols[..., k, k] for k in range(4)], dim=-1)
     best = torch.argmax(torch.abs(diag), dim=-1)
     v = torch.gather(adj_cols, -1, best[..., None, None].expand(best.shape + (4, 1)))[..., 0]
-    norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    norm = torch.sqrt(chain_sum(v * v))[..., None]
     ok = norm > 1e-20
     fallback = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=N.dtype, device=N.device)
     return torch.where(ok, v / torch.where(ok, norm, 1.0), fallback)

@@ -16,6 +16,7 @@ import torch
 
 from tpu3dm_torch.ops.compact import compaction_permutation
 from tpu3dm_torch.ops.ransac_score import corres_features
+from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, small_matvec
 from tpu3dm_torch.registration.hypotheses import (
     fit_score_gathers,
     refit_inliers,
@@ -80,7 +81,7 @@ def f32_cos_deg(deg: float) -> float:
 def rot_cos(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     """cos of the rotation angle between Ta and Tb ([..., 4, 4] each):
     (trace(Ra^T Rb) - 1) / 2."""
-    return (torch.sum(Ta[..., :3, :3] * Tb[..., :3, :3], dim=(-2, -1)) - 1.0) * 0.5
+    return (chain_sum((Ta[..., :3, :3] * Tb[..., :3, :3]).flatten(-2)) - 1.0) * 0.5
 
 
 def _at(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -203,8 +204,8 @@ def ransac_pair_step(
         rank_to_idx = None
     n_valid = torch.sum(valid, dim=-1)
     w = valid.to(torch.float32)[..., None]
-    denom = torch.clamp_min(torch.sum(w, dim=-2), 1.0)
-    c0 = torch.sum((p_all + q_all) * 0.5 * w, dim=-2) / denom  # [B, 3]
+    denom = torch.clamp_min(ordered_sum(w, dim=-2), 1.0)
+    c0 = ordered_sum((p_all + q_all) * 0.5 * w, dim=-2) / denom  # [B, 3]
     p_all = torch.where(valid[..., None], p_all - c0[:, None, :], 0.0)
     q_all = torch.where(valid[..., None], q_all - c0[:, None, :], 0.0)
     n_chunks = max(1, iterations // batch_size)
@@ -252,7 +253,7 @@ def ransac_pair_step(
         # T_world = Shift(c0) . T_centered . Shift(-c0).
         c = c0.reshape(one + (3,))
         T = T.clone()
-        T[..., :3, 3] = T[..., :3, 3] + c - torch.einsum("...ij,...j->...i", T[..., :3, :3], c)
+        T[..., :3, 3] = T[..., :3, 3] + c - small_matvec(T[..., :3, :3], c)
         return T, count
 
     def run(chunk_fn, carry, count_of):

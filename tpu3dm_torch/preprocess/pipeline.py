@@ -233,3 +233,30 @@ def preprocess_points_batch(
             full = from_numpy(raw, capacity=cap_f, device="cpu")
         out.append(ProcessedCloud(full=full, down=down, voxel_size=config.voxel_size))
     return out
+
+
+def load_cloud(
+    path,
+    config: PreprocessConfig = PreprocessConfig(),
+    *,
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> ProcessedCloud:
+    """Read a PLY file and preprocess it (``preprocess_points``).
+
+    Raises FileNotFoundError for a missing file, TypeError for a name
+    without the .ply suffix, and ValueError (``io.ply.PlyError``) for a
+    malformed file, as JAX's ``load_cloud`` does.
+    """
+    from pathlib import Path
+
+    from tpu3dm_torch.io.ply import read_ply
+
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"Ply file not found: {path}")
+    if path.suffix.lower() != ".ply":
+        raise TypeError(f"File is not a ply file: {path}")
+    return preprocess_points(read_ply(path)["points"], config, noise=noise, generator=generator,
+                             device=device)

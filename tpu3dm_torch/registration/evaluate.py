@@ -1,5 +1,6 @@
-"""Registration evaluation, Open3D ``evaluate_registration`` parity (port of
-tpu3dm/registration/evaluate.py).  ``information_matrix`` is not ported."""
+"""Registration evaluation, Open3D ``evaluate_registration`` and
+``get_information_matrix_from_point_clouds`` parity (port of
+tpu3dm/registration/evaluate.py)."""
 
 from __future__ import annotations
 
@@ -33,3 +34,23 @@ def evaluate_registration(
         transformation=T, fitness=fitness, inlier_rmse=rmse,
         iterations=torch.tensor(0, dtype=torch.int32),
     )
+
+
+def information_matrix(
+    src: PointCloud,
+    tgt: PointCloud,
+    max_distance: float,
+    transformation: torch.Tensor,
+) -> torch.Tensor:
+    """6x6 pose-graph edge information matrix (Open3D semantics): the sum
+    over inlier correspondences of G^T G, G = [I | -[q]_x] at the matched
+    TARGET point q."""
+    dev = src.points.device
+    T = torch.as_tensor(transformation, dtype=torch.float32, device=dev)
+    pts = se3.apply(T, src.points).contiguous()
+    d2, idx = nn_search(pts, tgt.points, src.mask, tgt.mask)
+    w = ((d2 < f32_square(max_distance)) & src.mask).to(torch.float32)
+    q = tgt.points[idx.to(torch.int64)]
+    eye = torch.eye(3, dtype=torch.float32, device=dev).expand(q.shape[0], 3, 3)
+    G = torch.cat([eye, -se3.hat(q)], dim=2)  # [N, 3, 6]
+    return torch.einsum("nij,nik->jk", G * w[:, None, None], G)

@@ -20,6 +20,12 @@ R N-mode RANSAC restarts, a pose dedup, annealed point-to-plane verification
 of every candidate, and an election on the verified fine-threshold count
 (RESCUE_TIE_RATIO / RESCUE_OVERRIDE_MARGIN, also the rule of registration/large.py).
 
+Every float sum over a pair's rows is ``ops.rowsum.ordered_sum`` (the
+ordered-row-sum kernel csrc/row_sums.cu on CUDA), and the small 3x3 / 4x4
+products are elementwise sums in a fixed order, so a pair's result has the
+same bits whatever the number of pairs in its call (JAX's serve contract:
+a request's result does not depend on its micro-batch).
+
 The step runs in a frame shifted by the target centroid rounded to a
 multiple of 64: far from the origin the point-to-plane Jacobian rows
 [n, p x n] pivot about a distant origin and the 6x6 normal equations lose
@@ -36,6 +42,7 @@ import torch
 from tpu3dm_torch import resolve_device
 from tpu3dm_torch.core import se3
 from tpu3dm_torch.ops.nn_lane import nn_mutual_mask_batched, nn_search_lane
+from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, row_sums, small_matmul, small_matvec
 from tpu3dm_torch.parallel.multipair import (
     _at,
     checked_bits,
@@ -103,7 +110,8 @@ def nn_route(nn_impl: str) -> NNRoute:
 def _pn_center(tgt_pts: torch.Tensor, tgt_mask: torch.Tensor) -> torch.Tensor:
     """Masked target centroid [B, 3], rounded to a multiple of 64."""
     w = tgt_mask.to(torch.float32)[..., None]
-    c = torch.sum(tgt_pts * w, dim=-2) / torch.clamp_min(torch.sum(w, dim=-2), 1.0)
+    s = ordered_sum(torch.cat([tgt_pts * w, w], dim=-1), dim=-2)
+    c = s[..., :3] / torch.clamp_min(s[..., 3:], 1.0)
     return torch.round(c / 64.0) * 64.0
 
 
@@ -137,22 +145,27 @@ def _solve6_cholesky(A, b):
 
 def _p2pl_delta_planar(pts, q, n, w):
     """Point-to-plane Gauss-Newton step xi [B, 6] from weighted
-    correspondences (pts, q, n [B, M, 3], w [B, M]): the 21 unique entries of
-    J^T W J and the 6 of -J^T W r as masked reductions, then the Cholesky
-    solve; a lane with a non-finite step moves by zero."""
+    correspondences (pts, q, n [B, ..., M, 3], w [B, ..., M]): the 21 unique
+    entries of J^T W J and the 6 of -J^T W r as one ``row_sums`` launch over
+    [B, ..., 27, M] rows, then the Cholesky solve; a lane with a non-finite
+    step moves by zero."""
     px, py, pz = pts[..., 0], pts[..., 1], pts[..., 2]
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
     J = (nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx)
     r = (px - q[..., 0]) * nx + (py - q[..., 1]) * ny + (pz - q[..., 2]) * nz
+    rows = [w * J[i] * J[j] for i in range(6) for j in range(i + 1)]
+    sums = row_sums(torch.stack(rows + [w * J[i] * r for i in range(6)], dim=-2))
     A = [[None] * 6 for _ in range(6)]
+    k = 0
     for i in range(6):
         for j in range(i + 1):
-            A[i][j] = torch.sum(w * J[i] * J[j], dim=-1)
+            A[i][j] = sums[..., k]
+            k += 1
     trA = A[0][0] + A[1][1] + A[2][2] + A[3][3] + A[4][4] + A[5][5]
     reg = 1e-6 * trA / 6.0 + 1e-12
     for i in range(6):
         A[i][i] = A[i][i] + reg
-    b = [-torch.sum(w * J[i] * r, dim=-1) for i in range(6)]
+    b = [-sums[..., 21 + i] for i in range(6)]
     xi = torch.stack(_solve6_cholesky(A, b), dim=-1)
     finite = torch.all(torch.isfinite(xi), dim=-1, keepdim=True)
     return torch.where(finite, xi, 0.0)
@@ -220,24 +233,23 @@ def icp_polish(
     center = _payload_center(tgt_pts, tgt_mask, f16_payload)
 
     def solve_step(T, pts, q, n):
-        d2 = torch.sum((pts - q) ** 2, dim=-1)
+        d2 = chain_sum((pts - q) ** 2)
         m = (d2 < thresh_sq) & src_mask
         xi = _p2pl_delta_planar(pts, q, n, m.to(torch.float32))
         rmse = torch.sqrt(
-            torch.sum(torch.where(m, d2, 0.0), dim=-1)
-            / torch.clamp_min(torch.sum(m, dim=-1), 1)
+            ordered_sum(torch.where(m, d2, 0.0)) / torch.clamp_min(torch.sum(m, dim=-1), 1)
         )
-        return se3.exp_se3(xi) @ T, rmse
+        return small_matmul(se3.exp_se3(xi, ordered=True), T), rmse
 
     n_outer = max(1, -(-icp_iterations // max(1, icp_solves_per_nn)))
     rmse = None
     for _ in range(n_outer):
-        pts = se3.apply(T, src_pts)
+        pts = se3.apply(T, src_pts, ordered=True)
         _, g = _lane_search(pts, tgt_pts, tgt_mask, tgt_pn, center)
         q, n = g[..., :3], g[..., 3:]
         T, rmse = solve_step(T, pts, q, n)
         for _ in range(icp_solves_per_nn - 1):
-            T, rmse = solve_step(T, se3.apply(T, src_pts), q, n)
+            T, rmse = solve_step(T, se3.apply(T, src_pts, ordered=True), q, n)
     return T, rmse
 
 
@@ -284,7 +296,7 @@ def _dedup(cands, ccounts, *, dist_thresh: float, n_keep: int):
         keepT.append(Tk)
         keepc.append(torch.clamp_min(ak, 0.0).to(torch.int32))
         rot_near = rot_cos(Tk[:, None], cands) >= cos_thr
-        tdiff = torch.sum((cands[..., :3, 3] - Tk[:, None, :3, 3]) ** 2, dim=-1)
+        tdiff = chain_sum((cands[..., :3, 3] - Tk[:, None, :3, 3]) ** 2)
         same_basin = rot_near & (tdiff <= t_dup_sq)
         weak_slide = rot_near & (aw < RESCUE_TIE_RATIO * ak[:, None])
         aw = torch.where(same_basin | weak_slide, -1.0, aw)
@@ -304,12 +316,13 @@ def _grade(T, src_pts, src_mask, tgt_pts, tgt_mask, *, dist_thresh: float, icp_t
     """One grading search of poses T [B, ..., 4, 4]: (fitness, fine-threshold
     inlier count, rmse), each [B, ...], from the exact 3-D distances."""
     sm = src_mask.reshape((src_mask.shape[0],) + (1,) * (T.ndim - 3) + src_mask.shape[1:])
-    d2, _ = _lane_search(se3.apply(T, src_pts.reshape(sm.shape + (3,))), tgt_pts, tgt_mask)
+    moved = se3.apply(T, src_pts.reshape(sm.shape + (3,)), ordered=True)
+    d2, _ = _lane_search(moved, tgt_pts, tgt_mask)
     m = (d2 < f32_square(dist_thresh)) & sm
     n_src = torch.clamp_min(torch.sum(sm, dim=-1), 1).to(torch.float32)
     fit = torch.sum(m, dim=-1).to(torch.float32) / n_src
     nfine = torch.sum((d2 < f32_square(icp_thresh)) & sm, dim=-1).to(torch.float32)
-    rmse = torch.sqrt(torch.sum(torch.where(m, d2, 0.0), dim=-1)
+    rmse = torch.sqrt(ordered_sum(torch.where(m, d2, 0.0))
                       / torch.clamp_min(torch.sum(m, dim=-1), 1))
     return fit, nfine, rmse
 
@@ -330,11 +343,12 @@ def verify_candidates(
     center = _payload_center(tgt_pts, tgt_mask, f16_payload)
     T = cands
     for t2 in _anneal_schedule(dist_thresh, icp_thresh, verify_iters):
-        pts = se3.apply(T, src_pts[:, None])
+        pts = se3.apply(T, src_pts[:, None], ordered=True)
         _, g = _lane_search(pts, tgt_pts, tgt_mask, tgt_pn, center)
         q, nv = g[..., :3], g[..., 3:]
-        m = (torch.sum((pts - q) ** 2, dim=-1) < t2) & sm
-        T = se3.exp_se3(_p2pl_delta_planar(pts, q, nv, m.to(torch.float32))) @ T
+        m = (chain_sum((pts - q) ** 2) < t2) & sm
+        xi = _p2pl_delta_planar(pts, q, nv, m.to(torch.float32))
+        T = small_matmul(se3.exp_se3(xi, ordered=True), T)
     return (T,) + _grade(T, src_pts, src_mask, tgt_pts, tgt_mask, dist_thresh=dist_thresh,
                          icp_thresh=icp_thresh)
 
@@ -383,7 +397,7 @@ def _inputs(dev, floats, flags):
 def _unshift(T, frame_c):
     """T_world = Shift(frame_c) . T . Shift(-frame_c) for T [B, 4, 4]."""
     T = T.clone()
-    T[:, :3, 3] = T[:, :3, 3] + frame_c - torch.einsum("bij,bj->bi", T[:, :3, :3], frame_c)
+    T[:, :3, 3] = T[:, :3, 3] + frame_c - small_matvec(T[:, :3, :3], frame_c)
     return T
 
 
@@ -528,10 +542,10 @@ def verify_elect_probes(
     f16 = nn_route(nn_impl).f16_payload
     tgt_pn = torch.cat([tgt_pts, tgt_normals], dim=-1)
     wsrc = src_mask.to(torch.float32)[:, None, :, None]
-    pts0 = se3.apply(cands, src_pts[:, None])
+    pts0 = se3.apply(cands, src_pts[:, None], ordered=True)
     _, g0 = _lane_search(pts0, tgt_pts, tgt_mask, tgt_pn, _payload_center(tgt_pts, tgt_mask, f16))
-    snap = torch.sum((g0[..., :3] - pts0) * wsrc, dim=-2) / torch.clamp_min(
-        torch.sum(wsrc, dim=-2), 1.0)
+    snap = ordered_sum((g0[..., :3] - pts0) * wsrc, dim=-2) / torch.clamp_min(
+        ordered_sum(wsrc, dim=-2), 1.0)
     T0 = cands.clone()
     T0[..., :3, 3] = T0[..., :3, 3] + snap
     vT, vfit, vfine, vrmse = verify_candidates(
@@ -560,8 +574,9 @@ def screw_probes(Ts: torch.Tensor, init_T: torch.Tensor | None = None) -> torch.
     for i in range(n):
         inv_i = se3.inverse(Ts[:, i])
         for j in range(i + 1, n):
-            xi = se3.log_se3(Ts[:, j] @ inv_i)
-            probes += [se3.exp_se3(t * xi) @ Ts[:, i] for t in SCREW_POWERS]
+            xi = se3.log_se3(small_matmul(Ts[:, j], inv_i))
+            probes += [small_matmul(se3.exp_se3(t * xi, ordered=True), Ts[:, i])
+                       for t in SCREW_POWERS]
     return torch.stack(probes, 1)
 
 
@@ -610,7 +625,7 @@ def escalated_register_step(
         # The caller's world pose in the shifted frame.
         init_T = torch.as_tensor(init_T, dtype=torch.float32, device=dev).clone()
         init_T[:, :3, 3] = (init_T[:, :3, 3] - frame_c
-                            + torch.einsum("bij,bj->bi", init_T[:, :3, :3], frame_c))
+                            + small_matvec(init_T[:, :3, :3], frame_c))
 
     q_all, valid = correspondences(src_feat, tgt_feat, src_mask, tgt_mask, tgt_pts, approx=True)
     Ts, _ = ransac_pair_step(

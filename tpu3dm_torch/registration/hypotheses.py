@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from tpu3dm_torch.core import se3
 from tpu3dm_torch.ops.ransac_score import corres_features, score_features
+from tpu3dm_torch.ops.rowsum import chain_sum
 from tpu3dm_torch.registration.kabsch import fit_rigid_horn
 
 PlanarR = tuple[tuple[torch.Tensor, ...], ...]
@@ -284,8 +286,7 @@ def rescore_rows(H, e, F, c, valid, thresh_sq: float) -> torch.Tensor:
 def count_inliers(T, p_all, q_all, valid, thresh_sq: float):
     """(inlier mask [..., M], count [...]) of transforms T [..., 4, 4] on
     their correspondences p_all, q_all [..., M, 3]."""
-    moved = p_all @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
-    d2 = torch.sum((moved - q_all) ** 2, dim=-1)
+    d2 = chain_sum((se3.apply(T, p_all, ordered=True) - q_all) ** 2)
     inl = (d2 < thresh_sq) & valid
     return inl, torch.sum(inl, dim=-1, dtype=torch.int32)
 
