@@ -120,11 +120,34 @@ Phases (any failure exits non-zero and prints no ok line):
      zeroed before and read after each call (the fp32 score and kernel 4
      > 0 required), the profiler's stage times, each call gated; restarts
      1 again on the CPU with the same bits, within the CPU limit;
-  6i. the card tests of the batch-size repair (pytest --noconftest on
-     tests/test_torch_kernels.py: the ordered-row-sum kernel bit-equal to
-     its plain version, one pair of the fused step bit-equal at 1, 2, 8 and
-     128 pairs, the Horn refit at 1-64 fits, the kNN features at 1, 16 and
-     256 clouds);
+  6j. paths M1-M3, multi-way registration (multiway/posegraph.py) at
+     run_multiway_benchmark's settings: M1 256 views of a 20,000-point arch
+     (rand_T(k), sigma 0.01), preprocess_points_batch(full_normals=False)
+     at voxel 0.3, register_multiway_batched over the 256 chain + loop
+     edges (chunks of 128, rescue_restarts 2, robust_delta 0.1, 20
+     edgewise pose-graph iterations), one cold and three warm calls with
+     one bit set, launch counts zeroed before the first warm call and read
+     after it (kernels 1, 2, the bf16 score and row_sums > 0 required),
+     warm s and edges/s, the pose graph's share of a call, every edge gated
+     (< 2 deg against its true relative transform), edges 0-3 against the
+     CPU, the pose graph solved on the CPU from the card's edges against
+     the card's poses, edge 0 alone bit-equal to edge 0 in its chunk, the
+     warm calls bit-equal; M2 the same on the first 16 views (the dense
+     jacfwd solve), every pose gated too, one profiled call; M3
+     register_multiway on 4 views with full-resolution normals into a
+     checkpoint directory, one edge record deleted, run again, bit-equal
+     (the fp32 score and kernel 4 > 0 required);
+  6k. path R: preprocess_points_batch on the 16 clouds with the feature
+     routes that skip the shared scan (both caps 0; fpfh_max_nn 0;
+     normal_radius_mult 6), cold and warm, clouds 0-1 against the CPU;
+  6l. path K: run_all_crash_tests on the card, all eight cases passing
+     (the fp32 score > 0 required), then kernel 3's fp32 route against its
+     plain version on every chunk the suite's RANSAC cases score;
+  6m. the card tests (pytest --noconftest on tests/test_torch_kernels.py:
+     the ordered-row-sum kernel bit-equal to its plain version, one pair of
+     the fused step bit-equal at 1, 2, 8 and 128 pairs, the Horn refit at
+     1-64 fits, the kNN features at 1, 16 and 256 clouds, the pose-graph
+     solves' determinism, the crash suite);
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -151,7 +174,9 @@ Phases (any failure exits non-zero and prints no ok line):
      rows of kernel 2 from paths E and F4, the rescore row from F1; each
      row also lists its launches on every path, path I as "I" (I2's counted
      call, all buckets), "I3", "S" (S1's counted run), "V" (the depth-0
-     flood), "P" and "P4" (path P's warm calls)), then the ok line, last.
+     flood), "P" and "P4" (path P's warm calls), "M1", "M2" (a warm call),
+     "M3" (the first run), "R" (the three warm calls) and "K" (the suite)),
+     then the ok line, last.
 """
 
 from __future__ import annotations
@@ -269,8 +294,27 @@ SERVE_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums
 # Path P: register_files on two arch PLYs at voxel 0.3, restarts 1 and 4.
 PIPELINE_RESTARTS = (1, 4)
 PIPELINE_KERNELS = ("ransac_score", "nn_tiled_smalld")
+# Paths M1-M3: multi-way registration at run_multiway_benchmark's settings
+# (tpu3dm/apps/benchmark.py:384-476): 256 views (M1, the edgewise pose
+# graph), 16 (M2, the dense one), and register_multiway on 4 (M3).
+MULTIWAY_CLOUDS = 256
+MULTIWAY_SMALL = 16
+MULTIWAY_POINTS = 20_000
+MULTIWAY_RESCUE = 2
+MULTIWAY_ROBUST = 0.1
+MULTIWAY_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+MULTIWAY_FULL_KERNELS = ("ransac_score", "nn_tiled_smalld")
+RESUME_CLOUDS = 4
+# The pose graph solved on the card and on the CPU from the same edges.
+PG_AGREE_DEG, PG_AGREE_T = 1.0, 0.1
+# Path R: configurations whose features run without the shared kNN scan.
+FEATURE_ROUTES = (
+    ("uncapped", {"normal_max_nn": 0, "fpfh_max_nn": 0}),
+    ("fpfh_uncapped", {"fpfh_max_nn": 0}),
+    ("unshared_capped", {"normal_radius_mult": 6.0}),
+)
 # The card tests of the batch-size repair, run by pytest in the card-test phase.
-CARD_TESTS = "row_sums or batch_size or cloud_count"
+CARD_TESTS = "row_sums or batch_size or cloud_count or pose_graph or crash"
 LARGE_GATE_ROT_DEG = 2.0
 LARGE_GATE_RMSE = 0.01
 AGREE_POINTS = 40_000  # path A on the card against the CPU, same sample bits
@@ -864,7 +908,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipeline_launches = pipeline_paths(dev, cfg)
 
-    # --- 6i. the card tests of the batch-size repair (pytest) ----------------
+    # --- 6j-6l. paths M1-M3, R and K: multi-way registration, the feature
+    # routes without the shared scan, the crash suite ----------------------------
+    torch.cuda.empty_cache()
+    multiway_launches = multiway_paths(dev, cfg)
+    torch.cuda.empty_cache()
+    route_launches = feature_route_paths(dev, cfg)
+    crash_launches = crash_paths(dev)
+
+    # --- 6m. the card tests (pytest) ------------------------------------------
     card_tests()
 
     # --- 7-10. the large-cloud path -----------------------------------------
@@ -872,7 +924,7 @@ def main() -> int:
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
                **batch_launches, **stream_launches, **serve_launches, **pipeline_launches,
-               **large_launches}
+               **multiway_launches, **route_launches, **crash_launches, **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -2276,12 +2328,341 @@ def pipeline_paths(dev, cfg) -> dict:
     return out
 
 
+def multiway_views(n_clouds: int, n_points: int):
+    """JAX's run_multiway_benchmark data (tpu3dm/apps/benchmark.py:384-476):
+    view k is dental_arch_cloud(n_points, seed=0) under rand_T(k) (view 0
+    under the identity) plus sigma 0.01 noise, one generator seeded 0 across
+    the views.  Returns (views, trues [n, 4, 4])."""
+    from tpu3dm_torch.io.synthetic import dental_arch_cloud
+
+    rng = np.random.default_rng(0)
+    base = dental_arch_cloud(n_points, seed=0)
+    center = base.mean(axis=0)
+
+    def rand_T(k):
+        r = np.random.default_rng(1000 + k)
+        a, b, c = r.uniform(-np.pi / 6, np.pi / 6, size=3)
+        rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+        ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+        rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
+        R = rz @ ry @ rx
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = -R @ center + center + r.uniform(-0.5, 0.5, size=3)
+        return T
+
+    trues = np.stack([np.eye(4)] + [rand_T(k) for k in range(1, n_clouds)])
+    views = [(base @ T[:3, :3].T + T[:3, 3] + 0.01 * rng.standard_normal(base.shape))
+             .astype(np.float32) for T in trues]
+    return views, trues
+
+
+def rot_deg(Ta, Tb) -> np.ndarray:
+    """Rotation (deg) between [..., 4, 4] pose sets, from the Frobenius gap
+    (exact near 0)."""
+    d = np.asarray(Ta, np.float64)[..., :3, :3] - np.asarray(Tb, np.float64)[..., :3, :3]
+    fro = np.sqrt((d * d).sum((-2, -1)))
+    return np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
+
+
+def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool) -> dict:
+    """``register_multiway_batched`` over the chain + loop-closure edges of
+    ``clouds`` at run_multiway_benchmark's settings (rescue_restarts 2,
+    robust_delta 0.1, 20 pose-graph iterations), one bit set for every call:
+    a cold call, then three warm calls (launch counts zeroed before the
+    first and read after it); every edge gated (< 2 deg against its true
+    relative transform) and, with ``gate_poses``, every pose (< 2 deg
+    against its truth); edges 0-3 against the CPU with the same bits;
+    the pose graph solved on the CPU from the card's edges against the
+    card's poses (agree_cpu's bounds); edge 0 alone bit-equal to edge 0 in
+    its chunk; the warm calls' results bit-equal.  Returns the counted
+    call's launch counts."""
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.multiway import posegraph
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.registration.batch import pair_bits_shape
+
+    n = len(clouds)
+    edges = posegraph.default_edges(n)
+    cap = max(c.down.capacity for c in clouds)
+    shape = pair_bits_shape(cap, rescue_restarts=MULTIWAY_RESCUE)[0]
+    gen = torch.Generator().manual_seed(0)
+    bits = torch.stack([draw_bits(shape, gen) for _ in edges])
+    kw = dict(rescue_restarts=MULTIWAY_RESCUE, robust_delta=MULTIWAY_ROBUST, edge_bits=bits)
+
+    def call(device=dev, **over):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = posegraph.register_multiway_batched(clouds, cfg, device=device, **{**kw, **over})
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    _, cold_s = call()
+    reset_launch_counts()
+    res, first_s = call()
+    counts = {k: v.launches for k, v in KERNELS.items()}
+    for k in MULTIWAY_KERNELS:
+        if counts[k] == 0:
+            fail(f"path {label}: {k} was never launched")
+    warm = [first_s]
+    for _ in range(2):
+        again, s = call()
+        warm.append(s)
+        for f in ("poses", "edge_transforms", "edge_fitness"):
+            if not np.array_equal(getattr(again, f), getattr(res, f)):
+                fail(f"path {label}: two warm calls differ in {f}")
+    warm_s = float(np.median(warm))
+
+    rel_true = np.stack([trues[j] @ np.linalg.inv(trues[i]) for i, j in edges])
+    edge_err = rot_deg(res.edge_transforms, rel_true)
+    if not (np.isfinite(res.poses).all() and edge_err.max() < 2.0):
+        fail(f"path {label}: worst edge {edge_err.max():.3f} deg (gate 2 deg)")
+    note = ""
+    if gate_poses:
+        pose_err = rot_deg(res.poses, np.linalg.inv(trues))
+        if pose_err.max() >= 2.0:
+            fail(f"path {label}: worst pose {pose_err.max():.3f} deg (gate 2 deg)")
+        note = f", worst pose {pose_err.max():.4f} deg"
+
+    # The pose graph alone on the card (its share of a call), then on the CPU
+    # from the card's edges.
+    T_meas = torch.as_tensor(res.edge_transforms, device=dev)
+    w = torch.as_tensor(res.edge_fitness.astype(np.float32), device=dev)
+    solve = dict(n_nodes=n, iterations=20, robust_delta=MULTIWAY_ROBUST)
+    pg_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        posegraph._solve_pose_graph(T_meas, edges, w, **solve)
+        torch.cuda.synchronize()
+        pg_times.append(time.time() - t0)
+    pg_s = float(np.median(pg_times))
+    t0 = time.time()
+    cpu_poses = posegraph._solve_pose_graph(T_meas.cpu(), edges, w.cpu(), **solve)
+    pg_cpu_s = time.time() - t0
+    pg_rot, pg_t = apart(torch.as_tensor(res.poses), cpu_poses)
+    if pg_rot >= PG_AGREE_DEG or pg_t >= PG_AGREE_T:
+        fail(f"path {label}: the pose graph on the card and on the CPU differ: rot "
+             f"{pg_rot:.4f} deg, t {pg_t:.4g}")
+    pg_agree = f"rot {pg_rot:.4f} deg, t {pg_t:.3g}"
+
+    alone, _ = call(edges=edges[:1], edge_bits=bits[:1], pose_graph_iters=0)
+    if not (np.array_equal(alone.edge_transforms[0], res.edge_transforms[0])
+            and alone.edge_fitness[0] == res.edge_fitness[0]):
+        fail(f"path {label}: edge 0 alone differs from edge 0 in its "
+             f"{min(posegraph.EDGE_CHUNK, len(edges))}-edge chunk")
+    t0 = time.time()
+    ref = posegraph.register_multiway_batched(clouds, cfg, device="cpu", edges=edges[:4],
+                                              pose_graph_iters=0, **{**kw, "edge_bits": bits[:4]})
+    cpu_s = time.time() - t0
+    edge_agree = agree_cpu(f"path {label} edges 0-3", torch.as_tensor(res.edge_transforms[:4]),
+                           torch.as_tensor(ref.edge_transforms))
+    log(f"path {label} (register_multiway_batched, {n} clouds of {MULTIWAY_POINTS} points, "
+        f"{len(edges)} edges, cap {cap}, rescue {MULTIWAY_RESCUE}, robust {MULTIWAY_ROBUST}): "
+        f"cold {cold_s:.3f} s, warm {warm_s:.3f} s median of 3 ({warm[0]:.3f} / {warm[1]:.3f} "
+        f"/ {warm[2]:.3f}) -> {len(edges) / warm_s:.1f} edges/s; pose graph "
+        f"({'edgewise' if n >= posegraph._EDGEWISE_THRESHOLD else 'dense'}) {pg_s * 1e3:.1f} ms "
+        f"median of 3 "
+        f"= {pg_s / warm_s:.1%} of a warm call (CPU {pg_cpu_s:.2f} s); edges: worst "
+        f"{edge_err.max():.4f} deg, mean {edge_err.mean():.4f} deg, least fitness "
+        f"{res.edge_fitness.min():.4f}{note}; launches "
+        f"{ {k: counts[k] for k in MULTIWAY_KERNELS} }; card vs CPU: pose graph {pg_agree}, "
+        f"edges 0-3 {edge_agree} (CPU {cpu_s:.1f} s); edge 0 alone bit-equal, warm calls "
+        f"bit-equal")
+    return counts
+
+
+def multiway_paths(dev, cfg) -> dict:
+    """Paths M1-M3, the multi-way registration (multiway/posegraph.py).  M1:
+    run_multiway_benchmark(256)'s shape (MULTIWAY_CLOUDS views of a
+    20k-point arch, preprocess_points_batch(full_normals=False) at voxel
+    0.3, the edgewise pose graph); M2: its first MULTIWAY_SMALL views (the
+    dense jacfwd solve), poses gated too, one profiled call; M3:
+    ``register_multiway`` on RESUME_CLOUDS views with full-resolution
+    normals into a checkpoint directory, one edge record deleted, run
+    again: bit-equal.  Returns {"M1", "M2", "M3": launch counts}."""
+    import os
+    import tempfile
+
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.multiway import posegraph
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+
+    views, trues = multiway_views(MULTIWAY_CLOUDS, MULTIWAY_POINTS)
+    out = {}
+    for label, n in (("M1", MULTIWAY_CLOUDS), ("M2", MULTIWAY_SMALL)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        clouds = preprocess_points_batch(views[:n], cfg.preprocess, full_normals=False,
+                                         device=dev)
+        torch.cuda.synchronize()
+        log(f"path {label} ingest: {n} clouds in {time.time() - t0:.3f} s "
+            f"(preprocess_points_batch, full_normals=False, cap {clouds[0].down.capacity})")
+        out[label] = multiway_case(label, clouds, trues[:n], dev, cfg, gate_poses=label == "M2")
+        torch.cuda.empty_cache()
+    profile_report(lambda: posegraph.register_multiway_batched(
+        clouds, cfg, device=dev, rescue_restarts=MULTIWAY_RESCUE,
+        robust_delta=MULTIWAY_ROBUST), "path M2")
+
+    fulls = preprocess_points_batch(views[:RESUME_CLOUDS], cfg.preprocess, full_normals=True,
+                                    device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for run in ("first", "resumed"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.time()
+            res = posegraph.register_multiway(fulls, cfg, generator=torch.Generator().manual_seed(0),
+                                              checkpoint_dir=tmp, device=dev)
+            torch.cuda.synchronize()
+            runs.append((res, time.time() - t0, {k: v.launches for k, v in KERNELS.items()}))
+            if run == "first":
+                os.remove(os.path.join(tmp, "edge_0001_0002.npz"))
+    (first, first_s, counts), (again, again_s, again_counts) = runs
+    for k in MULTIWAY_FULL_KERNELS:
+        if counts[k] == 0:
+            fail(f"path M3: {k} was never launched")
+    for f in ("poses", "edge_transforms", "edge_fitness"):
+        if not np.array_equal(getattr(first, f), getattr(again, f)):
+            fail(f"path M3: the resumed run differs in {f}")
+    edges = posegraph.default_edges(RESUME_CLOUDS)
+    rel_true = np.stack([trues[j] @ np.linalg.inv(trues[i]) for i, j in edges])
+    edge_err = rot_deg(first.edge_transforms, rel_true)
+    pose_err = rot_deg(first.poses, np.linalg.inv(trues[:RESUME_CLOUDS]))
+    if edge_err.max() >= 2.0 or pose_err.max() >= 2.0:
+        fail(f"path M3: worst edge {edge_err.max():.3f} deg, pose {pose_err.max():.3f} deg")
+    log(f"path M3 (register_multiway, {RESUME_CLOUDS} clouds of {MULTIWAY_POINTS} points with "
+        f"full-resolution normals, {len(edges)} edges): {first_s:.3f} s, resumed after one "
+        f"edge record was deleted {again_s:.3f} s, bit-equal; worst edge {edge_err.max():.4f} "
+        f"deg, worst pose {pose_err.max():.4f} deg; launches "
+        f"{ {k: counts[k] for k in MULTIWAY_FULL_KERNELS} } (resumed: "
+        f"{ {k: again_counts[k] for k in MULTIWAY_FULL_KERNELS} })")
+    out["M3"] = counts
+    return out
+
+
+def feature_route_paths(dev, cfg) -> dict:
+    """Path R, the feature routes without the shared scan:
+    ``preprocess_points_batch`` on phase 3's 16 clouds (full_normals=False)
+    with each of FEATURE_ROUTES, cold and warm, launch counts zeroed before
+    the warm call; clouds 0-1 against the same on the CPU within the CPU
+    tests' bounds (``features_agree``).  Returns {"R": the counts}."""
+    import dataclasses
+
+    import torch
+
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+
+    raw = [c for s in range(PAIRS) for c in make_benchmark_pair(N_POINTS, seed=s, sigma=0.01)[:2]]
+    counts = {}
+    for name, over in FEATURE_ROUTES:
+        pp = dataclasses.replace(cfg.preprocess, **over)
+        walls = []
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.time()
+            procs = preprocess_points_batch(raw, pp, full_normals=False, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        for k, v in KERNELS.items():
+            counts[k] = counts.get(k, 0) + v.launches
+        t0 = time.time()
+        ref = preprocess_points_batch(raw[:2], pp, full_normals=False, device="cpu",
+                                      down_cap=procs[0].down.capacity)
+        cpu_s = time.time() - t0
+        worst = [features_agree(f"path R {name} cloud {i}", procs[i].down, ref[i].down)
+                 for i in range(2)]
+        log(f"path R {name} ({over}): {len(raw)} clouds, cap {procs[0].down.capacity}: cold "
+            f"{walls[0] * 1e3:.1f} ms, warm {walls[1] * 1e3:.1f} ms; clouds 0-1 vs CPU "
+            f"({cpu_s:.1f} s): normals dot min {min(w[0] for w in worst):.6f}, FPFH relative "
+            f"L1 max {max(w[1] for w in worst):.3g}")
+        torch.cuda.empty_cache()
+    return {"R": counts}
+
+
+def crash_paths(dev) -> dict:
+    """Path K, the crash suite (apps/crashtest.py) on the card: every case
+    must pass, launch counts zeroed before and read after (kernel 3's fp32
+    route > 0 required).  Then kernel 3's fp32 route against its plain
+    version on the hypotheses the suite's RANSAC cases score (64 rows with
+    none valid, 300 rows at five outlier ratios, 50 rows near 1000): counts
+    inside the float64 bracket of FP32_CHAIN_REL, equal on >= 99.9% of
+    hypotheses, never more than 1 apart, all 0 without a valid row.
+    Returns {"K": the suite's counts}."""
+    import torch
+
+    from tpu3dm_torch.apps import crashtest
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.ops import ransac_score
+    from tpu3dm_torch.registration import hypotheses
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    results = crashtest.run_all_crash_tests(device=dev)
+    torch.cuda.synchronize()
+    suite_s = time.time() - t0
+    counts = {k: v.launches for k, v in KERNELS.items()}
+    failed = [f"{r.name} ({r.detail})" for r in results if not r.passed]
+    if failed:
+        fail(f"path K: crash cases failed on the card: {failed}")
+    if counts["ransac_score"] == 0:
+        fail("path K: kernel 3's fp32 route was never launched")
+
+    captured = []
+    real = hypotheses.score_features
+
+    def capture(H, e, F, c, valid, thresh_sq):
+        captured.append((H.clone(), e.clone(), F.clone(), c.clone(), valid.clone(), thresh_sq))
+        return real(H, e, F, c, valid, thresh_sq)
+
+    hypotheses.score_features = capture
+    try:
+        for case in (crashtest.test_zero_correspondences, crashtest.test_noise_ratio_sweep,
+                     crashtest.test_degenerate_huge_transform):
+            case(dev)
+    finally:
+        hypotheses.score_features = real
+    shapes = {}
+    for H, e, F, c, v, thr in captured:
+        if H.dtype != torch.float32:
+            fail(f"path K: the crash RANSAC scored {H.dtype} features, not fp32")
+        ck = ransac_score.score_features(H, e, F, c, v, thr)
+        cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+        sure, near = ransac_score.score_count_bracket(H, e, F, c, v, thr,
+                                                      ransac_score.FP32_CHAIN_REL)
+        diff = (ck - cp).abs()
+        outside = sum(int(((x < sure) | (x > sure + near)).sum()) for x in (ck, cp))
+        exact = (diff == 0).float().mean().item()
+        if outside or (not v.any() and ck.any()):
+            fail(f"path K: kernel 3 at K {H.shape[1]} x N {F.shape[1]} disagrees with its plain "
+                 f"version: {outside} counts outside the bracket, {exact:.6f} equal")
+        key = (H.shape[1], F.shape[1], int(v.sum()))
+        prev = shapes.get(key, (0, 1.0, 0))
+        shapes[key] = (prev[0] + 1, min(prev[1], exact), max(prev[2], int(diff.max())))
+    log(f"path K (run_all_crash_tests on the card): {len(results)}/{len(results)} passed in "
+        f"{suite_s:.2f} s; launches: kernel 3 fp32 {counts['ransac_score']}, row_sums "
+        f"{counts['row_sums']}; kernel 3 fp32 against its plain version on "
+        f"{len(captured)} scored chunks: "
+        + ", ".join(f"K {k} x N {n} ({nv} valid) x {c}: equal {ex:.6f}, max diff {d}"
+                    for (k, n, nv), (c, ex, d) in sorted(shapes.items())))
+    return {"K": counts}
+
+
 def card_tests() -> None:
-    """The card tests of the batch-size repair (tests/test_torch_kernels.py,
-    CARD_TESTS): the ordered-row-sum kernel bit-equal to its plain version;
-    one pair of fused_register_step with batch.py's knobs bit-equal alone and
-    in batches of 2, 8 and 128; each cloud's kNN features bit-equal at 1, 16
-    and 256 clouds a call."""
+    """The card tests of tests/test_torch_kernels.py named by CARD_TESTS: the
+    ordered-row-sum kernel bit-equal to its plain version; one pair of
+    fused_register_step with batch.py's knobs bit-equal alone and in batches
+    of 2, 8 and 128; each cloud's kNN features bit-equal at 1, 16 and 256
+    clouds a call; the pose-graph solves bit-equal call to call; the crash
+    suite's cases and kernel 3 at their shapes."""
     t0 = time.time()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
@@ -2345,7 +2726,8 @@ def large_phases(dev, results: dict) -> dict:
         tv = voxel_downsample_host(tgt_pts, pp.voxel_size, device=dev)
         mark()
         sd, td = (down_features(v, pp.normal_radius, pp.fpfh_radius, normal_max_nn=pp.normal_max_nn,
-                                fpfh_max_nn=pp.fpfh_max_nn) for v in (sv, tv))
+                                fpfh_max_nn=pp.fpfh_max_nn,
+                                share_knn=pp.normal_radius <= pp.fpfh_radius) for v in (sv, tv))
         mark()
         coarse = large.coarse_pose_with_verification(
             sd, td, cfg, generator=torch.Generator().manual_seed(0))

@@ -224,7 +224,8 @@ def test_feature_stage_shift_is_an_exact_noop_near_the_origin():
     down = pvoxel.voxel_downsample_host(sp, 0.3, device="cpu")
     pp = PCFG.preprocess
     got = ppipe.down_features(down, pp.normal_radius, pp.fpfh_radius,
-                              normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn)
+                              normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn,
+                              share_knn=True)
     assert not torch.round(down.centroid() / 64.0).any()
     pts = torch.where(down.mask[:, None], down.points, 1e9)
     d2, idx, valid = nn_topk(pts, pts, down.mask, down.mask, k=pp.fpfh_max_nn,

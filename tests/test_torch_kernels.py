@@ -1411,3 +1411,88 @@ def test_knn_features_do_not_follow_the_cloud_count(cuda_device):
             assert torch.equal(sixteen[i][k], whole[i][k]), (i, k)
     for k in range(2):
         assert torch.equal(one[0][k], whole[0][k]), k
+
+
+def _noisy_graph(n, seed):
+    """n random poses joined to their next two neighbours (a ring), each
+    measurement off by ~0.03 in every tangent coordinate: (T_meas, edges,
+    weights, truth).  Every edge keeps a residual far above ~3.5e-4 rad at
+    the optimum, where fp32 rounds a residual's trace to 3 and JAX's step
+    guard would freeze the solve at a step that depends on the last bits."""
+    from tpu3dm_torch.core import se3
+
+    gen = torch.Generator().manual_seed(seed)
+    truth = se3.exp_se3(torch.randn((n, 6), generator=gen) * 0.4)
+    truth[0] = torch.eye(4)
+    edges = [(i, (i + k) % n) for k in (1, 2) for i in range(n)]
+    ii, jj = (torch.tensor([e[k] for e in edges]) for k in (0, 1))
+    T = se3.inverse(truth[jj]) @ truth[ii] @ se3.exp_se3(
+        torch.randn((len(edges), 6), generator=gen) * 0.03)
+    w = 0.5 + 0.5 * torch.rand(len(edges), generator=gen)
+    return T, edges, w, truth
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 256])
+@pytest.mark.parametrize("robust", [None, 0.1])
+def test_pose_graph_is_bit_equal_call_to_call(cuda_device, n, robust):
+    """The pose-graph solve on the card (dense below 65 nodes, edgewise at
+    256: its blocks summed in a fixed order, not by index_add_) gives the
+    same bits in two calls, and lies near the CPU's solve of the same graph
+    (both fp32; the solves round differently): within 1e-3 in every pose
+    entry at 16 nodes, within 0.05 at 256, where the ring's weakest modes
+    (the Hessian's condition ~1e5) carry the rounding and the robust
+    weights, refitted every step, compound it."""
+    from tpu3dm_torch.multiway.posegraph import _solve_pose_graph
+
+    T, edges, w, _ = _noisy_graph(n, seed=n)
+    kw = dict(n_nodes=n, iterations=20, robust_delta=robust)
+    a = _solve_pose_graph(T.to(cuda_device), edges, w.to(cuda_device), **kw)
+    b = _solve_pose_graph(T.to(cuda_device), edges, w.to(cuda_device), **kw)
+    assert torch.equal(a, b), float((a - b).abs().max())
+    assert torch.isfinite(a).all()
+    cpu = _solve_pose_graph(T, edges, w, **kw)
+    gap = float((a.cpu() - cpu).abs().max())
+    assert gap < (1e-3 if n < 65 else 0.05), gap
+
+
+@pytest.mark.gpu
+def test_crash_suite_passes_on_the_card(cuda_device):
+    """Every crash case on CUDA, and kernel 3's fp32 route against its plain
+    version on every chunk the RANSAC cases score (64 rows none valid, 300
+    rows, 50 rows near 1000): both counts inside the float64 bracket of
+    FP32_CHAIN_REL, all 0 without a valid row.  (Near 1000 the products
+    reach ~1e6 against a threshold of 1, so fp32's chains legitimately
+    differ by several counts there; both stay inside the bracket.)"""
+    from tpu3dm_torch.apps import crashtest
+    from tpu3dm_torch.registration import hypotheses
+
+    reset_launch_counts()
+    results = crashtest.run_all_crash_tests(device=cuda_device)
+    assert all(r.passed for r in results), [(r.name, r.detail) for r in results]
+    assert KERNELS["ransac_score"].launches > 0
+    captured = []
+    real = hypotheses.score_features
+
+    def capture(*args):
+        captured.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return real(*args)
+
+    hypotheses.score_features = capture
+    try:
+        crashtest.test_zero_correspondences(cuda_device)
+        crashtest.test_noise_ratio_sweep(cuda_device)
+        crashtest.test_degenerate_huge_transform(cuda_device)
+    finally:
+        hypotheses.score_features = real
+    assert {a[2].shape[1] for a in captured} >= {64, 300, 50}
+    for H, e, F, c, v, thr in captured:
+        assert H.dtype == torch.float32
+        ck = ransac_score.score_features(H, e, F, c, v, thr)
+        cp = ransac_score.score_features_plain(H, e, F, c, v, thr)
+        sure, near = ransac_score.score_count_bracket(H, e, F, c, v, thr,
+                                                      ransac_score.FP32_CHAIN_REL)
+        for x in (ck, cp):
+            assert ((x >= sure) & (x <= sure + near)).all()
+        if not v.any():
+            assert not ck.any()

@@ -306,3 +306,126 @@ def test_preprocess_points_full_normals_match_jax(full_max_nn, shift):
     _assert_normals_agree(out.full.normals.numpy(), np.asarray(fj.normals),
                           np.asarray(fj.points), m)
     assert np.abs(np.linalg.norm(out.full.normals.numpy()[m], axis=1) - 1).max() < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The unshared and uncapped feature routes (compute_fpfh, compute_fpfh_capped,
+# down_features without the shared scan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def arch_normals():
+    """arch_down's cloud with JAX's capped normals, in both packages."""
+    from tpu3dm.preprocess.normals import estimate_normals_capped as j_capped
+
+    pts, _, _ = make_benchmark_pair(4000, seed=2, sigma=0.01)
+    dn = j_capped(j_voxel(pts, CFG.voxel_size), CFG.normal_radius, max_nn=CFG.normal_max_nn)
+    return dn, from_reference_arrays(_arrays(dn), device="cpu")
+
+
+def _rel_l1(fp, fj, m):
+    return np.abs(fp - fj).sum(1)[m] / np.abs(fj).sum(1)[m]
+
+
+def test_spfh_block_matches_jax(arch_normals):
+    """One 512-row target block against every query: the same histogram and
+    neighbour counts exactly, the 1 / |d| weights within 1e-6 of their
+    largest."""
+    from tpu3dm.preprocess.fpfh import _spfh_block as j_spfh
+    from tpu3dm_torch.preprocess.fpfh import _spfh_block as p_spfh
+
+    dn, pc = arch_normals
+    r2 = np.float32(CFG.fpfh_radius) ** 2
+    pj = jnp.where(dn.mask[:, None], dn.points, 1e9)
+    hj, cj, wj = (np.asarray(x) for x in j_spfh(pj, dn.normals, pj[:512], dn.normals[:512],
+                                                 dn.mask[:512], jnp.float32(r2)))
+    pp = torch.where(pc.mask[:, None], pc.points, 1e9)
+    hp, cp, wp = (x.numpy() for x in p_spfh(pp, pc.normals, pp[:512], pc.normals[:512],
+                                             pc.mask[:512], float(r2)))
+    np.testing.assert_array_equal(hp, hj)
+    np.testing.assert_array_equal(cp, cj)
+    assert np.abs(wp - wj).max() <= 1e-6 * np.abs(wj).max()
+
+
+@pytest.mark.parametrize("capped", [False, True])
+def test_compute_fpfh_matches_jax(arch_normals, capped):
+    """Same cloud and normals: the all-neighbour FPFH within 1e-5 relative
+    L1 a point (1.3e-7 seen), the capped one within 1e-4 (2.1e-5 seen: its
+    kNN scan's near-ties, as the shared route's); masked rows 0.  A batch
+    of two clouds gives each cloud's features bit for bit."""
+    from tpu3dm.preprocess.fpfh import compute_fpfh as j_fpfh_all
+    from tpu3dm.preprocess.fpfh import compute_fpfh_capped as j_fpfh_capped
+    from tpu3dm_torch.preprocess.fpfh import compute_fpfh, compute_fpfh_capped
+
+    dn, pc = arch_normals
+    if capped:
+        fj = j_fpfh_capped(dn, CFG.fpfh_radius, max_nn=CFG.fpfh_max_nn).features
+        fn = lambda c: compute_fpfh_capped(c, CFG.fpfh_radius, max_nn=CFG.fpfh_max_nn)  # noqa: E731
+    else:
+        fj = j_fpfh_all(dn, CFG.fpfh_radius).features
+        fn = lambda c: compute_fpfh(c, CFG.fpfh_radius)  # noqa: E731
+    fp = fn(pc).features.numpy()
+    m = np.asarray(dn.mask)
+    assert _rel_l1(fp, np.asarray(fj), m).max() < (1e-4 if capped else 1e-5)
+    assert np.all(fp[~m] == 0)
+    other = pc.with_(points=pc.points.flip(0), mask=pc.mask.flip(0), normals=pc.normals.flip(0))
+    pair = fn(type(pc)(*(torch.stack([getattr(pc, f), getattr(other, f)])
+                         for f in ("points", "mask", "normals", "features"))))
+    assert torch.equal(pair.features[0], torch.from_numpy(fp))
+    assert torch.equal(pair.features[1], fn(other).features)
+
+
+UNSHARED = {
+    "uncapped": dict(normal_max_nn=0, fpfh_max_nn=0),
+    "fpfh_uncapped": dict(fpfh_max_nn=0),
+    "normals_uncapped": dict(normal_max_nn=0),
+    "normal_radius_over_fpfh": dict(normal_radius_mult=6.0),
+}
+
+
+@pytest.mark.parametrize("route", sorted(UNSHARED))
+def test_unshared_down_features_match_jax(route):
+    """``preprocess_points_batch`` on configurations JAX runs without the
+    shared scan: a cap of 0 (every neighbour in the radius) or a normal
+    radius above the FPFH radius.  The down points exactly, the normals
+    within the full-resolution normals' bounds above (the all-neighbour
+    moments differ in the last bits), and the features within the end-to-end
+    bounds of test_preprocess_points_matches_jax, relative L1 a point:
+    median < 1e-3, 90% < 5e-3, max < 0.05 (4e-5, 2.3e-4 and 6.6e-3 seen:
+    a normal a few ulps off moves a neighbour's angle across a bin edge)."""
+    from tpu3dm.preprocess.pipeline import preprocess_points_batch as j_batch
+    from tpu3dm_torch.core.config import PipelineConfig as PConfig
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch as p_batch
+
+    cfg = dataclasses.replace(CFG, **UNSHARED[route])
+    pcfg = dataclasses.replace(PConfig.with_voxel_size(0.3).preprocess, **UNSHARED[route])
+    clouds = [make_benchmark_pair(n, seed=s, sigma=0.01)[0] for s, n in ((1, 4000), (4, 3000))]
+    jout = j_batch(clouds, cfg, full_normals=False)
+    pout = p_batch(clouds, pcfg, full_normals=False, device="cpu")
+    for j, p in zip(jout, pout):
+        m = np.asarray(j.down.mask)
+        np.testing.assert_array_equal(p.down.mask.numpy(), m)
+        np.testing.assert_array_equal(p.down.points.numpy(), np.asarray(j.down.points))
+        _assert_normals_agree(p.down.normals.numpy(), np.asarray(j.down.normals),
+                              np.asarray(j.down.points), m)
+        rel = _rel_l1(p.down.features.numpy(), np.asarray(j.down.features), m)
+        assert np.median(rel) < 1e-3 and np.quantile(rel, 0.9) < 5e-3 and rel.max() < 0.05
+        assert np.all(p.down.features.numpy()[~m] == 0)
+
+
+def test_down_features_without_share_knn_matches_jax(arch_down):
+    """Default caps with ``share_knn=False``: capped normals, then the
+    capped FPFH from its own scan, as JAX's unshared branch; relative L1
+    within 1e-4 a point (2.1e-5 seen)."""
+    from tpu3dm.preprocess.pipeline import down_features as j_down_features
+    from tpu3dm_torch.preprocess.pipeline import down_features as p_down_features
+
+    _, down, _ = arch_down
+    kw = dict(normal_max_nn=CFG.normal_max_nn, fpfh_max_nn=CFG.fpfh_max_nn, share_knn=False)
+    j = j_down_features(down, CFG.normal_radius, CFG.fpfh_radius, **kw)
+    p = p_down_features(from_reference_arrays(_arrays(down), device="cpu"), CFG.normal_radius,
+                        CFG.fpfh_radius, **kw)
+    m = np.asarray(down.mask)
+    assert np.sum(p.normals.numpy() * np.asarray(j.normals), axis=1)[m].min() > 0.9999
+    assert _rel_l1(p.features.numpy(), np.asarray(j.features), m).max() < 1e-4

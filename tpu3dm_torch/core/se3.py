@@ -25,12 +25,15 @@ def identity(device=None) -> torch.Tensor:
 
 
 def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble a 4x4 transform from rotation ``[3, 3]`` and translation ``[3]``."""
-    T = torch.zeros((4, 4), dtype=R.dtype, device=R.device)
-    T[:3, :3] = R
-    T[:3, 3] = t
-    T[3, 3] = 1.0
-    return T
+    """Assemble ``[..., 4, 4]`` transforms from rotations ``[..., 3, 3]`` and
+    translations ``[..., 3]``.
+
+    The blocks are concatenated, not written into a zero tensor, so
+    ``torch.func.jacfwd`` and ``vmap`` trace through it (and ``inverse`` /
+    ``exp_se3``, which assemble with it)."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    top = torch.cat([R, t[..., None]], dim=-1)
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
 def rotation(T: torch.Tensor) -> torch.Tensor:
@@ -50,11 +53,7 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    out = torch.zeros_like(T)
-    out[..., :3, :3] = Rt
-    out[..., :3, 3] = -torch.einsum("...ij,...j->...i", Rt, t)
-    out[..., 3, 3] = 1.0
-    return out
+    return make(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
 
 
 def apply(T: torch.Tensor, points: torch.Tensor, *, ordered: bool = False) -> torch.Tensor:
@@ -110,11 +109,7 @@ def exp_se3(xi: torch.Tensor, *, ordered: bool = False) -> torch.Tensor:
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
     R = eye + A[..., None, None] * W + B[..., None, None] * WW
     V = eye + B[..., None, None] * W + C[..., None, None] * WW
-    out = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
-    out[..., :3, :3] = R
-    out[..., :3, 3] = small_matvec(V, rho) if ordered else torch.einsum("...ij,...j->...i", V, rho)
-    out[..., 3, 3] = 1.0
-    return out
+    return make(R, small_matvec(V, rho) if ordered else torch.einsum("...ij,...j->...i", V, rho))
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Synthetic benchmark clouds: a NumPy copy of tpu3dm/io/synthetic.py (the
-arch, plate and scan families).
+"""Synthetic clouds: a NumPy copy of tpu3dm/io/synthetic.py (the
+degenerate-geometry fixtures of the crash suite, and the arch, plate and
+scan benchmark families).
 
 The same seeds give the same arrays as the JAX package's generators, so both
 packages can register the same pairs.
@@ -8,6 +9,45 @@ packages can register the same pairs.
 from __future__ import annotations
 
 import numpy as np
+
+
+def minimal_cloud(n: int = 3, seed: int = 0) -> np.ndarray:
+    """N random points (the reference crash suite's minimal-N cloud)."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1.0, 1.0, size=(n, 3))
+
+
+def collinear_cloud(n: int = 10, seed: int = 0) -> np.ndarray:
+    """Points on a line."""
+    t = np.linspace(0.0, 1.0, n)[:, None]
+    return t * np.array([[1.0, 2.0, 3.0]])
+
+
+def coplanar_cloud(n: int = 16, seed: int = 0) -> np.ndarray:
+    """Points on a plane."""
+    rng = np.random.default_rng(seed)
+    uv = rng.uniform(-1.0, 1.0, size=(n, 2))
+    e1 = np.array([1.0, 0.0, 0.5])
+    e2 = np.array([0.0, 1.0, -0.25])
+    return uv[:, :1] * e1 + uv[:, 1:] * e2
+
+
+def duplicate_cloud(n: int = 10) -> np.ndarray:
+    """All-identical points."""
+    return np.tile(np.array([[0.5, -0.25, 1.0]]), (n, 1))
+
+
+def random_cloud(n: int = 1000, scale: float = 1.0, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-scale, scale, size=(n, 3))
+
+
+def sphere_cloud(n: int = 2000, radius: float = 1.0, seed: int = 0) -> np.ndarray:
+    """Uniform points on a sphere surface: simple geometry with known normals."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return radius * v
 
 
 def dental_arch_cloud(

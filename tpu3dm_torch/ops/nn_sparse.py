@@ -8,7 +8,7 @@ XLA in JAX) and keeps the w best with an exactness certificate.  The search
 over those candidates is ``nn_search_table``: on CUDA it launches
 csrc/nn_blocksparse.cu, which replaces ``_sparse_nn_kernel``; on the CPU it
 runs ``nn_search_table_plain``, the same arithmetic chunked over query blocks.
-``morton_perm`` is not ported.
+``morton_perm`` (a Z-order sort, host NumPy) is a copy of JAX's.
 """
 
 from __future__ import annotations
@@ -37,6 +37,28 @@ NN_BLOCKSPARSE = Kernel(
     "nn_blocksparse", "nn_blocksparse.cu", "t3t_nn_blocksparse", [PTR] * 5 + [INT] * 3,
 )
 MAX_BLOCK = 2048  # the largest block the card tests hold the kernel to
+
+
+def morton_perm(points: np.ndarray, bits: int = 10) -> np.ndarray:
+    """Permutation sorting points along a 3-D Morton (Z-order) curve with
+    2^bits cells per axis (host NumPy, a copy of JAX's)."""
+    pts = np.asarray(points, dtype=np.float64)
+    lo = pts.min(axis=0)
+    span = np.maximum(pts.max(axis=0) - lo, 1e-12)
+    q = np.minimum(((pts - lo) / span * (2**bits - 1)).astype(np.uint64), 2**bits - 1)
+
+    def spread(x):
+        # interleave bits: two zero bits between each bit of x
+        x = (x | (x << 32)) & np.uint64(0x1F00000000FFFF)
+        x = (x | (x << 16)) & np.uint64(0x1F0000FF0000FF)
+        x = (x | (x << 8)) & np.uint64(0x100F00F00F00F00F)
+        x = (x | (x << 4)) & np.uint64(0x10C30C30C30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x1249249249249249)
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2))
+    return np.argsort(code, kind="stable")
 
 
 def kd_perm(points: np.ndarray, block: int) -> np.ndarray:

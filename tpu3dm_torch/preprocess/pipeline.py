@@ -1,15 +1,17 @@
-"""Ingest + preprocessing (port of tpu3dm/preprocess/pipeline.py, shared-kNN path).
+"""Ingest + preprocessing (port of tpu3dm/preprocess/pipeline.py).
 
 ``preprocess_points`` (one cloud) and ``preprocess_points_batch`` (many,
 the down features batched over clouds): host voxel downsample, then
-``down_features``: ONE k = fpfh_max_nn top-k
-scan feeds both the normals (first normal_max_nn slots, re-masked by the
-normal radius) and the 33-D FPFH.  The full-resolution cloud gets its own
-normals at the normal radius, as JAX's ``preprocess_points`` gives them:
-every neighbour in the radius (``estimate_normals``) when
-``full_normal_max_nn`` is 0, else the nearest ``full_normal_max_nn``
-(``estimate_normals_capped``).  Optional Gaussian noise goes on the
-downsampled points after the features, as the reference adds it.
+``down_features``: with the default radii and caps ONE k = fpfh_max_nn
+top-k scan feeds both the normals (first normal_max_nn slots, re-masked by
+the normal radius) and the 33-D FPFH; other configurations (a cap of 0, or
+normal_radius > fpfh_radius) run each stage on its own, as JAX does.  The
+full-resolution cloud gets its own normals at the normal radius, as JAX's
+``preprocess_points`` gives them: every neighbour in the radius
+(``estimate_normals``) when ``full_normal_max_nn`` is 0, else the nearest
+``full_normal_max_nn`` (``estimate_normals_capped``).  Optional Gaussian
+noise goes on the downsampled points after the features, as the reference
+adds it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from tpu3dm_torch.core.cloud import PAD_SENTINEL, PointCloud, from_numpy, round_
 from tpu3dm_torch.core.config import PreprocessConfig
 from tpu3dm_torch.io.loader import voxel_downsample_many
 from tpu3dm_torch.ops.topk import nn_topk
-from tpu3dm_torch.preprocess.fpfh import fpfh_from_knn
+from tpu3dm_torch.preprocess.fpfh import compute_fpfh, compute_fpfh_capped, fpfh_from_knn
 from tpu3dm_torch.preprocess.normals import (
     estimate_normals,
     estimate_normals_capped,
@@ -50,14 +52,21 @@ def down_features(
     *,
     normal_max_nn: int,
     fpfh_max_nn: int,
+    share_knn: bool,
 ) -> PointCloud:
     """Normals + FPFH of one downsampled cloud ([N, 3] points), or of a batch
-    of clouds ([B, N, 3]), from one shared kNN scan.
+    of clouds ([B, N, 3]).
 
-    Needs 0 < normal_max_nn <= fpfh_max_nn and normal_radius <= fpfh_radius
-    (the reference's 30 <= 100 and 2 * voxel <= 5 * voxel): the slots are
-    distance-ascending, so the first normal_max_nn re-masked by the normal
-    radius are exactly the normals' hybrid-search set.
+    With ``share_knn`` (the caller certifies normal_radius <= fpfh_radius)
+    and 0 < normal_max_nn <= fpfh_max_nn (the reference's 2 * voxel <= 5 *
+    voxel and 30 <= 100), ONE k = fpfh_max_nn top-k scan serves both: the
+    slots are distance-ascending, so the first normal_max_nn re-masked by
+    the normal radius are exactly the normals' hybrid-search set.
+    Otherwise each stage runs on its own, as JAX's: normals from the
+    max_nn nearest in the radius (``estimate_normals_capped``) or, at
+    normal_max_nn = 0, from every point in it (``estimate_normals``), cloud
+    by cloud; then ``compute_fpfh_capped``, or at fpfh_max_nn = 0
+    ``compute_fpfh``.
 
     The features are computed on the cloud shifted by its centroid rounded
     to a multiple of 64: |a|^2 + |b|^2 - 2ab loses the neighbour sets to fp32
@@ -65,25 +74,39 @@ def down_features(
     exact no-op for near-origin clouds.  The returned cloud keeps its
     original points.
     """
-    if not (0 < normal_max_nn <= fpfh_max_nn and normal_radius <= fpfh_radius):
-        raise NotImplementedError(
-            "down_features: only the shared-kNN configuration is ported "
-            "(0 < normal_max_nn <= fpfh_max_nn, normal_radius <= fpfh_radius)"
-        )
     orig = down
     ctr = torch.round(down.centroid() / 64.0) * 64.0
     down = down.with_(points=down.points - ctr[..., None, :])
-    pts = torch.where(down.mask[..., None], down.points, PAD_SENTINEL)
-    n = pts.shape[-2]
-    k_n = min(normal_max_nn, n)
-    d2, idx, valid = nn_topk(
-        pts, pts, down.mask, down.mask, k=min(fpfh_max_nn, n), radius=fpfh_radius,
-        self_pairs=True,
-    )
-    r2_n = float(torch.tensor(normal_radius, dtype=torch.float32) ** 2)
-    nvalid = valid[..., :k_n] & (d2[..., :k_n] <= r2_n)
-    down = normals_from_knn(down, idx[..., :k_n], nvalid)
-    featured = fpfh_from_knn(down, d2, idx, valid)
+    if share_knn and 0 < normal_max_nn <= fpfh_max_nn:
+        pts = torch.where(down.mask[..., None], down.points, PAD_SENTINEL)
+        n = pts.shape[-2]
+        k_n = min(normal_max_nn, n)
+        d2, idx, valid = nn_topk(
+            pts, pts, down.mask, down.mask, k=min(fpfh_max_nn, n), radius=fpfh_radius,
+            self_pairs=True,
+        )
+        r2_n = float(torch.tensor(normal_radius, dtype=torch.float32) ** 2)
+        nvalid = valid[..., :k_n] & (d2[..., :k_n] <= r2_n)
+        down = normals_from_knn(down, idx[..., :k_n], nvalid)
+        featured = fpfh_from_knn(down, d2, idx, valid)
+    else:
+        if normal_max_nn > 0:
+            def normals(pc):
+                return estimate_normals_capped(pc, normal_radius, max_nn=normal_max_nn)
+        else:
+            def normals(pc):
+                return estimate_normals(pc, normal_radius)
+        if down.points.ndim == 2:
+            down = normals(down)
+        else:
+            down = down.with_(normals=torch.stack([
+                normals(PointCloud(*(getattr(down, f)[b] for f in
+                                     ("points", "mask", "normals", "features")))).normals
+                for b in range(down.points.shape[0])]))
+        if fpfh_max_nn > 0:
+            featured = compute_fpfh_capped(down, fpfh_radius, max_nn=fpfh_max_nn)
+        else:
+            featured = compute_fpfh(down, fpfh_radius)
     return orig.with_(normals=featured.normals, features=featured.features)
 
 
@@ -140,6 +163,7 @@ def preprocess_points(
         config.fpfh_radius,
         normal_max_nn=config.normal_max_nn,
         fpfh_max_nn=config.fpfh_max_nn,
+        share_knn=config.normal_radius <= config.fpfh_radius,
     )
     if config.noise_sigma > 0.0:
         down = _noise_device(down, config.noise_sigma, noise, generator)
@@ -215,6 +239,7 @@ def preprocess_points_batch(
             config.fpfh_radius,
             normal_max_nn=config.normal_max_nn,
             fpfh_max_nn=config.fpfh_max_nn,
+            share_knn=config.normal_radius <= config.fpfh_radius,
         )
         normals.append(part.normals)
         features.append(part.features)

@@ -223,6 +223,7 @@ def register_arrays_large(
             voxel_downsample_host(points, pp.voxel_size, device=dev),
             pp.normal_radius, pp.fpfh_radius,
             normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn,
+            share_knn=pp.normal_radius <= pp.fpfh_radius,
         )
 
     src_down, tgt_down = down(src_pts), down(tgt_pts)

@@ -152,9 +152,12 @@ def _featured(pts: torch.Tensor, masks: torch.Tensor, config: PipelineConfig,
     pp = config.preprocess
     clouds = PointCloud(points=pts, mask=masks, normals=torch.zeros_like(pts),
                         features=torch.zeros(pts.shape[:2] + (0,), device=pts.device))
-    features = down_features_dense if dense_features else down_features
-    featured = features(clouds, pp.normal_radius, pp.fpfh_radius,
-                        normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn)
+    kw = dict(normal_max_nn=pp.normal_max_nn, fpfh_max_nn=pp.fpfh_max_nn)
+    if dense_features:
+        featured = down_features_dense(clouds, pp.normal_radius, pp.fpfh_radius, **kw)
+    else:
+        featured = down_features(clouds, pp.normal_radius, pp.fpfh_radius,
+                                 share_knn=pp.normal_radius <= pp.fpfh_radius, **kw)
     w = pts.shape[0] // 2
     half = [PointCloud(*(getattr(featured, f)[sl] for f in
                          ("points", "mask", "normals", "features")))
@@ -257,7 +260,7 @@ def stream_register_pairs(
         features and registration of a window on the device in one call
         each; results are equivalent to the generic path's, not equal.
       dense_features: the fused path's features: ``down_features_dense``,
-        else the shared-kNN ``down_features``.
+        else the kNN ``down_features``.
       retry_below_fitness: the fused path escalates every pair under this
         RANSAC fitness (0 disables); ``retry_measure_warm`` times a second
         run of the escalation for the steady rate (the benchmark setting),
