@@ -68,6 +68,16 @@ Phases (any failure exits non-zero and prints no ok line):
      E's poses as init_T, turned 90 deg about z on the odd lanes so their
      election must drop the init_T probe), counted, gated, lanes 0-1
      against the CPU;
+  6d'. paths Q1 and Q5 (batched), the pair-sharded mesh (parallel/): Q1
+     batched_register over the main path's 2048 lanes at bench's settings
+     (4096 hypotheses, 8 ICP iterations / 4 solves a search, bf16 score,
+     values_pk with fp32 features: JAX's knobs) on meshes of 1, 2 and 4
+     pair shards on the card (the device repeated), counted, every pair
+     bit-equal across the meshes and to a direct fused_register_step on the
+     same bits, every lane gated, pairs/s for each mesh; Q5 batched_ransac on
+     the 4x1 mesh over the same lanes' correspondences (the fp32 score),
+     counted, bit-equal to one ransac_pair_step over all lanes; Q6 (with
+     several cards) Q1 with a shard a card, else one line saying so;
   6e. path I, the batch API (registration/batch.py) at bench.py's
      distinct-pair width: I1 preprocess_points_batch of the 16 clouds
      (full_normals=False), cold and warm, each cloud's down normals and
@@ -85,7 +95,8 @@ Phases (any failure exits non-zero and prints no ok line):
      register_pairs_batched on the same pairs and bits; I4 checkpoint
      resume of 64 pairs (no launch), the device voxel grid equal to the
      host grid, noise sigma 0.05 (padding rows 0), down_features_dense on
-     the 16 clouds against the CPU;
+     the 16 clouds against the CPU; Q2 I2's call again over a 4x1 mesh,
+     counted, bit-equal to I2;
   6f. path S, the disk-to-result stream (registration/stream.py) at
      bench.py's stream settings: S1 stream_register_pairs over a fresh
      384-pair manifest cycling the arch, plate and scan families (20,000
@@ -114,12 +125,17 @@ Phases (any failure exits non-zero and prints no ok line):
      bf16 score and row_sums > 0 required); the engine alone on the same
      requests (8 waiting clients, then all at once) and one profiled
      micro-batch; request 0 alone bit-equal to request 0 of a 128-request
-     flood; ServeEngine(mesh=...) raising;
+     flood; Q2 64 of the flood's requests through ServeEngine(mesh=4x1),
+     counted, none on the resident route, every response ok and gated, the
+     inline requests bit-equal to the same requests without the mesh;
   6h. path P, the single-pair pipeline: register_files on pair 0's two
      PLYs at voxel 0.3 with restarts 1 and 4, cold and warm, launch counts
      zeroed before and read after each call (the fp32 score and kernel 4
      > 0 required), the profiler's stage times, each call gated; restarts
-     1 again on the CPU with the same bits, within the CPU limit;
+     1 again on the CPU with the same bits, within the CPU limit; Q5
+     sharded_ransac (100,000 hypotheses, the fp32 score) on a 1x4 block
+     mesh over the same pair's correspondences, counted, its pose refined by
+     P's ICP and gated;
   6j. paths M1-M3, multi-way registration (multiway/posegraph.py) at
      run_multiway_benchmark's settings: M1 256 views of a 20,000-point arch
      (rand_T(k), sigma 0.01), preprocess_points_batch(full_normals=False)
@@ -136,7 +152,8 @@ Phases (any failure exits non-zero and prints no ok line):
      jacfwd solve), every pose gated too, one profiled call; M3
      register_multiway on 4 views with full-resolution normals into a
      checkpoint directory, one edge record deleted, run again, bit-equal
-     (the fp32 score and kernel 4 > 0 required);
+     (the fp32 score and kernel 4 > 0 required); Q2 M1's call again over
+     a 4x1 mesh, counted, edges and poses bit-equal;
   6k. path R: preprocess_points_batch on the 16 clouds with the feature
      routes that skip the shared scan (both caps 0; fpfh_max_nn 0;
      normal_radius_mult 6), cold and warm, clouds 0-1 against the CPU;
@@ -147,13 +164,24 @@ Phases (any failure exits non-zero and prints no ok line):
      the ordered-row-sum kernel bit-equal to its plain version, one pair of
      the fused step bit-equal at 1, 2, 8 and 128 pairs, the Horn refit at
      1-64 fits, the kNN features at 1, 16 and 256 clouds, the pose-graph
-     solves' determinism, the crash suite);
+     solves' determinism, the crash suite, batched_register on four pair
+     shards of one card bit-equal to one shard);
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
      counts zeroed just before and read just after each call, each call
      gated as bench.py gates it (rotation < 2 deg, alignment RMSE < 0.01
      against T_true), then once more stage by stage; one profiled call of A;
+  7b. Q3 ring_nn_search on a 1x4 block mesh on the card: d = 3 on path A's
+     1,000,448-row clouds (kernel 4 in each of the 16 ring steps) and d = 33
+     on 32,768 random features with 5% of the rows masked (kernel 5), each
+     against nn_search on the whole arrays (every valid index equal, d2
+     within rtol = atol = 1e-5) and one ring step's shape against the
+     kernel's plain version; Q4 register_arrays_large(mesh=1x4) at path A's
+     settings with the block-sparse ring (kernel 6, its first ring step
+     against the plain version) and the dense ring (kernel 4), cold and
+     warm, counted, gated, within MESH_LARGE_GAP of path A's pose; Q6 (with
+     several cards) Q4 with a shard a card;
   8. kernels 3-6 against their plain versions at those paths' shapes: the
      fp32 RANSAC score of B's first hypothesis chunk (the
      "ransac_score_fp32_1lane" row: one lane, 4096 hypotheses, its
@@ -175,8 +203,10 @@ Phases (any failure exits non-zero and prints no ok line):
      row also lists its launches on every path, path I as "I" (I2's counted
      call, all buckets), "I3", "S" (S1's counted run), "V" (the depth-0
      flood), "P" and "P4" (path P's warm calls), "M1", "M2" (a warm call),
-     "M3" (the first run), "R" (the three warm calls) and "K" (the suite)),
-     then the ok line, last.
+     "M3" (the first run), "R" (the three warm calls), "K" (the suite),
+     and the mesh paths' counted calls "Q1", "Q2I", "Q2V", "Q2M", "Q3a",
+     "Q3f", "Q4s", "Q4d", "Q5b", "Q5s" (and "Q6", "Q6s", "Q6d")), then the
+     ok line, last.
 """
 
 from __future__ import annotations
@@ -313,8 +343,27 @@ FEATURE_ROUTES = (
     ("fpfh_uncapped", {"fpfh_max_nn": 0}),
     ("unshared_capped", {"normal_radius_mult": 6.0}),
 )
-# The card tests of the batch-size repair, run by pytest in the card-test phase.
-CARD_TESTS = "row_sums or batch_size or cloud_count or pose_graph or crash"
+# Paths Q1-Q6: the device mesh (parallel/).  On one card a mesh repeats the
+# device (make_mesh(n_pair, n_block, devices=[cuda:0] * k)), so the shard
+# split, the ring shifts, the ordered sums and the election run for real;
+# Q6 reruns Q1 and Q4 with a shard a card where the machine has several.
+MESH_PAIR_SHAPES = ((1, 1), (2, 1), (4, 1))  # Q1's meshes
+MESH_N = 4  # Q2's pair axis; Q3-Q5's block axis
+MESH_SERVE_REQUESTS = 64  # Q2's serving engine
+MESH_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+RING_FEATURES = 32_768  # Q3 at d = 33: 8192^2 entries a ring step on 4 shards
+RING_MASKED = 0.05  # the share of masked rows of Q3's features
+RING_TOL = 1e-5  # Q3's d2 bound: rtol = atol of JAX's own ring test (tests/test_parallel.py:43)
+# Q4: the sharded refinement against path A's single-device one.  Both start
+# from the same coarse pose (the same bits) and converge on the same 1M-point
+# clouds to Open3D's 1e-6 fitness / RMSE test; they differ by the order of the
+# ordered sums and, on the dense ring, by the exact search against the
+# candidate-bounded one, so the poses may stop an iteration apart near the
+# optimum.  A twentieth of the large gate (2 deg, 0.01) holds them.
+MESH_LARGE_GAP_DEG, MESH_LARGE_GAP_T = 0.1, 5e-4
+# The card tests of the batch-size repair and the mesh, run by pytest in the
+# card-test phase.
+CARD_TESTS = "row_sums or batch_size or cloud_count or pose_graph or crash or mesh"
 LARGE_GATE_ROT_DEG = 2.0
 LARGE_GATE_RMSE = 0.01
 AGREE_POINTS = 40_000  # path A on the card against the CPU, same sample bits
@@ -893,6 +942,10 @@ def main() -> int:
     hard_launches = hard_paths(src, tgt, T_true, mu, M2, cfg, T_e)
     del T_e
 
+    # --- 6n. paths Q1 and Q5 (batched): the pair-sharded mesh ----------------
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_pair_paths(dev, cfg, src, tgt, bits, T_true, mu, M2)
+
     # --- 6e. path I: the batch API (registration/batch.py) -------------------
     del src, tgt
     torch.cuda.empty_cache()
@@ -924,7 +977,8 @@ def main() -> int:
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
                **batch_launches, **stream_launches, **serve_launches, **pipeline_launches,
-               **multiway_launches, **route_launches, **crash_launches, **large_launches}
+               **multiway_launches, **route_launches, **crash_launches, **mesh_launches,
+               **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -1701,6 +1755,21 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
     if mates_gap != 0.0:
         fail(f"path I2: pairs 0-7 alone differ from the whole call by {mates_gap:.3g} "
              f"(bit-equal expected: a pair's sums do not follow its batch)")
+    # Q2: the same call with its buckets split over a 4x1 mesh on the card.
+    mesh = card_mesh(dev, MESH_N, 1)
+    res_q, q_counts, q_wall, _ = counted(
+        f"path Q2 register_pairs_batched(mesh={MESH_N}x1)", lambda: register(mesh=mesh),
+        {k: (lambda n: n > 0) for k in MESH_KERNELS})
+    same = (np.array_equal(res_q.transforms, res.transforms)
+            and np.array_equal(res_q.ransac_fitness, res.ransac_fitness)
+            and np.array_equal(res_q.icp_rmse, res.icp_rmse)
+            and res_q.bucket_of_pair == res.bucket_of_pair)
+    if not same:
+        fail(f"path Q2: register_pairs_batched with a {MESH_N}x1 mesh differs from I2 by "
+             f"{float(np.abs(res_q.transforms - res.transforms).max()):.3g} (bit-equal expected)")
+    log(f"path Q2 (register_pairs_batched, I2's {LANES} pairs, mesh {MESH_N}x1 on one card): "
+        f"{q_wall * 1e3:.1f} ms counted call, bit-equal to I2 without the mesh; launches "
+        f"{ {k: q_counts[k] for k in MESH_KERNELS} }")
     times, launch_only, resolve_only = [], [], []
     for _ in range(3):
         pending, t_launch = synced(lambda: batch.launch_pairs_batched(pairs, cfg, **kw))
@@ -1719,7 +1788,7 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
         f"memory {peak:.2f} GiB; {worst}, fitness min {res.ransac_fitness.min():.3f}; pairs 0-3 "
         f"vs CPU: {ref}; pairs 0-7 alone vs in the call: max |T difference| {mates_gap:.3g}")
     profile_report(register, "path I2")
-    out = {"I": total}
+    out = {"I": total, "Q2I": q_counts}
 
     # --- I3: many sources against one resident target ----------------------------
     rng = np.random.default_rng(13)
@@ -2079,8 +2148,9 @@ def serve_paths(dev, cfg) -> dict:
     source as one shared target PLY (the resident-target route and the cloud
     cache).  Every response ok and gated; run at pipeline_depth 0, then 1.
     Then one request alone against the same request first among
-    SERVE_FLOOD, bit for bit, and the mesh argument raising.  Returns {"V":
-    the launch counts of the depth-0 run}."""
+    SERVE_FLOOD, bit for bit, and Q2: MESH_SERVE_REQUESTS requests through
+    ServeEngine(mesh=4x1) against the same without the mesh.  Returns {"V":
+    the launch counts of the depth-0 run, "Q2V": Q2's}."""
     import dataclasses
     import tempfile
     import threading
@@ -2251,13 +2321,42 @@ def serve_paths(dev, cfg) -> dict:
             f"ms; pack p50 {st['pack_ms_per_batch']['p50']:.1f} ms, device p50 "
             f"{st['device_ms_per_batch']['p50']:.2f} ms a micro-batch; {st['batches']} "
             f"micro-batches, mean size {st['mean_batch_size']:.2f}")
-    try:
-        ServeEngine(cfg, serve, mesh=object(), device=dev)
-    except NotImplementedError:
-        log("path V: ServeEngine(mesh=...) raises NotImplementedError")
-    else:
-        fail("path V: ServeEngine(mesh=...) did not raise")
-    return {"V": counts0}
+    # Q2: MESH_SERVE_REQUESTS of the flood's requests through an engine whose
+    # micro-batches split over a 4x1 mesh on the card (no resident route),
+    # against the same requests without the mesh.
+    truth = [(moved[i % SERVE_SOURCES][1], moments(moved[i % SERVE_SOURCES][0])) if i % 2 == 0
+             else (pairs[i % PAIRS][2], moments(pairs[i % PAIRS][0]))
+             for i in range(MESH_SERVE_REQUESTS)]
+
+    def engine_run(mesh):
+        reqs = [p if i % 2 == 0 else tuple(dataclasses.replace(c) for c in p)
+                for i, p in enumerate(flood_pairs[:MESH_SERVE_REQUESTS])]
+        with ServeEngine(cfg, serve, mesh=mesh, device=dev) as eng:
+            futs = [eng.submit(*p) for p in reqs]
+            got = [f.result(timeout=600) for f in futs]
+            return got, eng.stats()
+
+    plain, _ = engine_run(None)
+    mesh = card_mesh(dev, MESH_N, 1)
+    (meshed, st), q_counts, q_wall, _ = counted(
+        f"path Q2 ServeEngine(mesh={MESH_N}x1)", lambda: engine_run(mesh),
+        {k: (lambda n: n > 0) for k in MESH_KERNELS})
+    if st["shared_target_requests"] or st["errors"]:
+        fail(f"path Q2 serve: {st['shared_target_requests']} requests on the resident route, "
+             f"{st['errors']} errors (none expected under a mesh)")
+    worst = gate_lanes("path Q2 serve", torch.tensor(np.stack([r.transformation for r in meshed])),
+                       np.stack([t[0] for t in truth]), np.stack([t[1][0] for t in truth]),
+                       np.stack([t[1][1] for t in truth]))
+    for i in range(1, MESH_SERVE_REQUESTS, 2):  # the inline pairs
+        a, b = meshed[i], plain[i]
+        if not (np.array_equal(a.transformation, b.transformation) and a.fitness == b.fitness
+                and a.inlier_rmse == b.inlier_rmse):
+            fail(f"path Q2 serve: inline request {i} differs from the engine without the mesh")
+    log(f"path Q2 (ServeEngine(mesh={MESH_N}x1), {MESH_SERVE_REQUESTS} requests, half inline "
+        f"pairs, half against one shared target): {q_wall:.2f} s, {st['batches']} micro-batches, "
+        f"none on the resident route; every response ok, {worst}; the inline requests bit-equal "
+        f"to the engine without the mesh; launches { {k: q_counts[k] for k in MESH_KERNELS} }")
+    return {"V": counts0, "Q2V": q_counts}
 
 
 def pipeline_paths(dev, cfg) -> dict:
@@ -2266,8 +2365,9 @@ def pipeline_paths(dev, cfg) -> dict:
     port's write_ply) at voxel 0.3, with restarts 1 and 4, each cold and
     warm, launch counts zeroed before and read after each call, the stage
     times from the port's profiler, each call gated (< 2 deg, alignment RMSE
-    < 0.1); restarts 1 again on the CPU with the same bits.  Returns {"P":
-    restarts 1's warm counts, "P4": restarts 4's}."""
+    < 0.1); restarts 1 again on the CPU with the same bits; then Q5
+    (sharded) on the same pair.  Returns {"P": restarts 1's warm counts,
+    "P4": restarts 4's, "Q5s": Q5's}."""
     import tempfile
 
     import torch
@@ -2325,7 +2425,45 @@ def pipeline_paths(dev, cfg) -> dict:
                 f"{int(res.icp.iterations)} iterations, fitness {float(res.icp.fitness):.4f}, "
                 f"rmse {float(res.icp.inlier_rmse):.5f}; launches "
                 f"{ {k: counts[k] for k in PIPELINE_KERNELS} }; {worst}{note}")
+    out["Q5s"] = sharded_ransac_path(dev, cfg, sp, tp, T_true, mu, M2)
     return out
+
+
+def sharded_ransac_path(dev, cfg, sp, tp, T_true, mu, M2) -> dict:
+    """Q5 (sharded): path P's pair preprocessed on the card, its FPFH
+    correspondences, then ``sharded_ransac`` with the config's 100,000
+    hypotheses over a 1x4 block mesh on the card (fp32 score), counted;
+    the elected 3-point pose refined by P's full-resolution ICP and held to
+    P's gate (the raw pose's error printed beside it).  Returns the counts."""
+    import torch
+
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.correspondence import feature_correspondences, gather_pairs
+    from tpu3dm_torch.registration.icp import refine_registration
+    from tpu3dm_torch.parallel.sharded_ransac import sharded_ransac
+
+    ps, pt = preprocess_points(sp, cfg.preprocess, device=dev), preprocess_points(
+        tp, cfg.preprocess, device=dev)
+    pairs, valid = feature_correspondences(ps.down, pt.down, mutual_filter=cfg.ransac.mutual_filter)
+    p_all, q_all = gather_pairs(ps.down, pt.down, pairs)
+    mesh = card_mesh(dev, 1, MESH_N)
+    res, counts, wall, _ = counted(
+        f"path Q5 sharded_ransac (1x{MESH_N})",
+        lambda: sharded_ransac(mesh, p_all, q_all, valid, generator=torch.Generator().manual_seed(0),
+                               dist_thresh=cfg.ransac.dist_thresh,
+                               iterations=cfg.ransac.max_iterations),
+        {"ransac_score": lambda n: n >= MESH_N})
+    raw_rot, raw_rmse = fused_gate(res.transformation[None], T_true[None], mu[None], M2[None])
+    fine = refine_registration(ps.full, pt.full, res.transformation, cfg.icp)
+    worst = gate_lanes("path Q5 sharded_ransac + ICP", fine.transformation[None], T_true[None],
+                       mu[None], M2[None])
+    log(f"path Q5 (sharded_ransac on 1x{MESH_N}, path P's pair: {int(valid.sum())} valid of "
+        f"{valid.shape[0]} correspondences, {int(res.iterations)} hypotheses, the fp32 score): "
+        f"{wall * 1e3:.1f} ms; fitness {float(res.fitness):.4f}, inlier rmse "
+        f"{float(res.inlier_rmse):.4f}; the elected 3-point pose rot {raw_rot[0]:.4f} deg, rmse "
+        f"{raw_rmse[0]:.4f}; after P's ICP {worst}; launches ransac_score "
+        f"{counts['ransac_score']}")
+    return counts
 
 
 def multiway_views(n_clouds: int, n_points: int):
@@ -2365,7 +2503,8 @@ def rot_deg(Ta, Tb) -> np.ndarray:
     return np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
 
 
-def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool) -> dict:
+def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool,
+                  mesh_check: bool = False) -> dict:
     """``register_multiway_batched`` over the chain + loop-closure edges of
     ``clouds`` at run_multiway_benchmark's settings (rescue_restarts 2,
     robust_delta 0.1, 20 pose-graph iterations), one bit set for every call:
@@ -2375,8 +2514,10 @@ def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool) -> d
     against its truth); edges 0-3 against the CPU with the same bits;
     the pose graph solved on the CPU from the card's edges against the
     card's poses (agree_cpu's bounds); edge 0 alone bit-equal to edge 0 in
-    its chunk; the warm calls' results bit-equal.  Returns the counted
-    call's launch counts."""
+    its chunk; the warm calls' results bit-equal; with ``mesh_check`` (Q2)
+    one more call with the edges split over a 4x1 mesh on the card, counted,
+    its edges and poses bit-equal to the warm calls'.  Returns {label: the
+    counted call's launch counts} (and "Q2M": the mesh call's)."""
     import torch
 
     from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
@@ -2414,6 +2555,19 @@ def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool) -> d
             if not np.array_equal(getattr(again, f), getattr(res, f)):
                 fail(f"path {label}: two warm calls differ in {f}")
     warm_s = float(np.median(warm))
+    out = {label: counts}
+    if mesh_check:
+        mesh = card_mesh(dev, MESH_N, 1)
+        (meshed, _), out["Q2M"], mesh_s, _ = counted(
+            f"path Q2 register_multiway_batched(mesh={MESH_N}x1)", lambda: call(mesh=mesh),
+            {k: (lambda n: n > 0) for k in MULTIWAY_KERNELS})
+        for f in ("poses", "edges", "edge_transforms", "edge_fitness"):
+            if not np.array_equal(getattr(meshed, f), getattr(res, f)):
+                fail(f"path Q2 multiway: the {MESH_N}x1 mesh call differs in {f} (bit-equal "
+                     f"expected)")
+        log(f"path Q2 (register_multiway_batched, {label}'s {n} views, mesh {MESH_N}x1 on one "
+            f"card): {mesh_s:.3f} s, edges and poses bit-equal to the call without the mesh; "
+            f"launches { {k: out['Q2M'][k] for k in MULTIWAY_KERNELS} }")
 
     rel_true = np.stack([trues[j] @ np.linalg.inv(trues[i]) for i, j in edges])
     edge_err = rot_deg(res.edge_transforms, rel_true)
@@ -2471,7 +2625,7 @@ def multiway_case(label: str, clouds, trues, dev, cfg, *, gate_poses: bool) -> d
         f"{ {k: counts[k] for k in MULTIWAY_KERNELS} }; card vs CPU: pose graph {pg_agree}, "
         f"edges 0-3 {edge_agree} (CPU {cpu_s:.1f} s); edge 0 alone bit-equal, warm calls "
         f"bit-equal")
-    return counts
+    return out
 
 
 def multiway_paths(dev, cfg) -> dict:
@@ -2482,7 +2636,8 @@ def multiway_paths(dev, cfg) -> dict:
     dense jacfwd solve), poses gated too, one profiled call; M3:
     ``register_multiway`` on RESUME_CLOUDS views with full-resolution
     normals into a checkpoint directory, one edge record deleted, run
-    again: bit-equal.  Returns {"M1", "M2", "M3": launch counts}."""
+    again: bit-equal.  Q2: M1's call again over a 4x1 mesh.  Returns {"M1",
+    "M2", "M3", "Q2M": launch counts}."""
     import os
     import tempfile
 
@@ -2502,7 +2657,8 @@ def multiway_paths(dev, cfg) -> dict:
         torch.cuda.synchronize()
         log(f"path {label} ingest: {n} clouds in {time.time() - t0:.3f} s "
             f"(preprocess_points_batch, full_normals=False, cap {clouds[0].down.capacity})")
-        out[label] = multiway_case(label, clouds, trues[:n], dev, cfg, gate_poses=label == "M2")
+        out.update(multiway_case(label, clouds, trues[:n], dev, cfg, gate_poses=label == "M2",
+                                 mesh_check=label == "M1"))
         torch.cuda.empty_cache()
     profile_report(lambda: posegraph.register_multiway_batched(
         clouds, cfg, device=dev, rescue_restarts=MULTIWAY_RESCUE,
@@ -2656,13 +2812,121 @@ def crash_paths(dev) -> dict:
     return {"K": counts}
 
 
+def card_mesh(dev, n_pair: int, n_block: int):
+    """A mesh of n_pair x n_block shards on ``dev`` alone (the device
+    repeated): the simulated mesh the smoke runs on one card."""
+    from tpu3dm_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_pair, n_block, devices=[dev] * (n_pair * n_block))
+
+
+def real_mesh(dev, axis: str):
+    """A mesh with a shard on each visible card along ``axis`` ("pair" or
+    "block"), for Q6; None on a machine with one card."""
+    import torch
+
+    from tpu3dm_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n < 2:
+        return None
+    return make_mesh(n, 1) if axis == "pair" else make_mesh(1, n)
+
+
+def mesh_pair_paths(dev, cfg, src, tgt, bits, T_true, mu, M2) -> dict:
+    """Q1: ``batched_register`` over the main path's 2048 lanes at bench's
+    settings (4096 hypotheses, 8 ICP iterations / 4 solves a search, bf16
+    score, the default values_pk route with fp32 features, JAX's knobs) on
+    meshes of 1, 2 and 4 pair shards: every pair bit-equal across the
+    meshes and to a direct ``fused_register_step`` on the same bits, every
+    lane gated, pairs/s for each mesh; with several cards (Q6) once more
+    with a shard a card.  Q5 (batched): ``batched_ransac`` on the 4x1 mesh
+    over the same lanes' correspondences (the fp32 score), bit-equal to one
+    ``ransac_pair_step`` over all of them.  Returns {"Q1": the 4x1 call's
+    counts, "Q5b": batched_ransac's (and "Q6": the multi-card Q1's)}."""
+    import torch
+
+    from tpu3dm_torch.parallel.multipair import batched_ransac, ransac_pair_step
+    from tpu3dm_torch.parallel.register import batched_register
+    from tpu3dm_torch.registration.fused import _pn_center, correspondences, fused_register_step
+
+    kw = dict(dist_thresh=cfg.ransac.dist_thresh, icp_thresh=cfg.icp.dist_thresh,
+              ransac_iterations=HYPOTHESES, icp_iterations=ICP_ITERS,
+              icp_solves_per_nn=ICP_SOLVES_PER_NN, approx_score=True)
+    args = [src["points"], src["features"], src["mask"], None,
+            tgt["points"], tgt["features"], tgt["mask"], tgt["normals"]]
+    direct = fused_register_step(*args, bits, device=dev, ransac_batch=HYPOTHESES, **kw)
+    expect = {k: (lambda n: n > 0) for k in MESH_KERNELS}
+    out, notes = {}, []
+    meshes = [(f"{a}x{b} on one card", card_mesh(dev, a, b)) for a, b in MESH_PAIR_SHAPES]
+    many = real_mesh(dev, "pair")
+    if many is not None:
+        meshes.append((f"{many.shape['pair']}x1, a shard a card (Q6)", many))
+    for label, mesh in meshes:
+        def call(mesh=mesh):
+            return batched_register(mesh, *args, bits, **kw)
+
+        call()  # warm-up
+        res, counts, _, peak = counted(f"path Q1 {label}", call, expect)
+        for k, name in enumerate(("transforms", "RANSAC fitness", "ICP RMSE")):
+            if not torch.equal(res[k].to(dev), direct[k]):
+                gap = float((res[k].to(dev).double() - direct[k].double()).abs().max())
+                fail(f"path Q1 {label}: {name} differ from the direct fused step by {gap:.3g} "
+                     f"(bit-equal expected)")
+        worst = gate_lanes(f"path Q1 {label}", res[0], T_true, mu, M2)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            call()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+        call_s = float(np.median(times))
+        notes.append(f"{label}: {call_s * 1e3:.1f} ms median of 3 -> {LANES / call_s:.1f} "
+                     f"pairs/s, peak {peak:.2f} GiB")
+        if mesh.shape["pair"] == MESH_N and many is not mesh:
+            out["Q1"] = counts
+        elif mesh is many:
+            out["Q6"] = counts
+    log(f"path Q1 (batched_register, {LANES} lanes, {HYPOTHESES} hypotheses, {ICP_ITERS} ICP "
+        f"iterations / {ICP_SOLVES_PER_NN} solves a search, bf16 score, values_pk): every mesh "
+        f"bit-equal to the direct fused step; {worst}; " + "; ".join(notes)
+        + f"; launches (4x1) { {k: out['Q1'][k] for k in MESH_KERNELS} }")
+    if many is None:
+        log(f"path Q6: the machine has {torch.cuda.device_count()} card(s); Q1 and Q4 with a shard "
+            f"a card were not run")
+
+    # Q5 (batched): the fused path's correspondences, its RANSAC on the mesh.
+    frame_c = _pn_center(tgt["points"], tgt["mask"])
+    sp = (src["points"] - frame_c[:, None]).contiguous()
+    tp = (tgt["points"] - frame_c[:, None]).contiguous()
+    q_all, valid = correspondences(src["features"], tgt["features"], src["mask"], tgt["mask"], tp)
+    rkw = dict(dist_thresh=cfg.ransac.dist_thresh, iterations=HYPOTHESES, batch_size=HYPOTHESES)
+    T_ref, c_ref = ransac_pair_step(sp, q_all, valid, bits, **rkw)
+    mesh = card_mesh(dev, MESH_N, 1)
+    (T_b, f_b), counts, wall, _ = counted(
+        "path Q5 batched_ransac", lambda: batched_ransac(mesh, sp, q_all, valid, bits, **rkw),
+        {"ransac_score": lambda n: n > 0})
+    f_ref = c_ref.to(torch.float32) / torch.clamp_min(valid.sum(-1), 1).to(torch.float32)
+    if not (torch.equal(T_b, T_ref) and torch.equal(f_b, f_ref)):
+        fail(f"path Q5: batched_ransac on {MESH_N}x1 differs from one ransac_pair_step by "
+             f"{float((T_b - T_ref).abs().max()):.3g} (bit-equal expected)")
+    out["Q5b"] = counts
+    log(f"path Q5 (batched_ransac on {MESH_N}x1, {LANES} correspondence sets of {sp.shape[1]} "
+        f"rows, {HYPOTHESES} hypotheses, the fp32 score): {wall * 1e3:.1f} ms counted call, "
+        f"bit-equal to one ransac_pair_step over all lanes; fitness min {f_b.min().item():.3f}; "
+        f"launches ransac_score {counts['ransac_score']}")
+    return out
+
+
 def card_tests() -> None:
     """The card tests of tests/test_torch_kernels.py named by CARD_TESTS: the
     ordered-row-sum kernel bit-equal to its plain version; one pair of
     fused_register_step with batch.py's knobs bit-equal alone and in batches
     of 2, 8 and 128; each cloud's kNN features bit-equal at 1, 16 and 256
     clouds a call; the pose-graph solves bit-equal call to call; the crash
-    suite's cases and kernel 3 at their shapes."""
+    suite's cases and kernel 3 at their shapes; batched_register on four
+    pair shards of one card bit-equal to one shard."""
     t0 = time.time()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
@@ -2672,6 +2936,145 @@ def card_tests() -> None:
     if out.returncode != 0:
         fail("card tests failed:\n" + "\n".join(lines[-40:]) + out.stderr[-2000:])
     log(f"card tests ({CARD_TESTS}): {lines[-1] if lines else ''} in {time.time() - t0:.1f} s")
+
+
+def mesh_large_paths(dev, src_pts, tgt_pts, a: dict, fine_a, gate) -> dict:
+    """Q3: ``ring_nn_search`` on a 1x4 block mesh on the card, at d = 3 on
+    path A's 1,000,448-row clouds (A's source moved by its downsampled-ICP
+    pose against its target: kernel 4 in every ring step) and at d = 33 on
+    RING_FEATURES random features with RING_MASKED of the rows masked
+    (kernel 5), each against ``nn_search`` on the whole arrays (valid rows:
+    every index equal, d2 within RING_TOL) and one ring step's shape against
+    the kernel's plain version.  Q4: ``register_arrays_large(mesh=1x4)`` at
+    path A's settings with the block-sparse ring (kernel 6; its first ring
+    step against the plain version) and the dense ring (kernel 4), cold and
+    warm, counted, gated, against path A's single-device pose within
+    MESH_LARGE_GAP_*; with several cards (Q6) once more with a shard a
+    card.  ``a`` holds path A's stage data, ``fine_a`` its refinement."""
+    import torch
+
+    from tpu3dm_torch.core import se3
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.ops import nn as tnn
+    from tpu3dm_torch.ops import nn_sparse
+    from tpu3dm_torch.parallel import sharded_icp
+    from tpu3dm_torch.parallel.ring_nn import ring_nn_search
+    from tpu3dm_torch.registration import large
+
+    out = {}
+    mesh = card_mesh(dev, 1, MESH_N)
+    src, tgt = a["src"], a["tgt"]
+    q = torch.where(src.mask[:, None], se3.apply(a["mid"], src.points), src.points).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fq, ft = (torch.randn((RING_FEATURES, 33), generator=gen, device=dev) for _ in range(2))
+    fqm, ftm = (torch.rand(RING_FEATURES, generator=gen, device=dev) >= RING_MASKED
+                for _ in range(2))
+    cases = (("Q3a", "d 3, path A's clouds", "nn_tiled_smalld", q, tgt.points, src.mask, tgt.mask),
+             ("Q3f", "d 33, random features", "nn_tiled_wide", fq, ft, fqm, ftm))
+    for key, label, kern, qq, tt, qmask, tmask in cases:
+        (d2r, ir), counts, ring_s, _ = counted(
+            f"path Q3 ring_nn_search ({label})",
+            lambda: ring_nn_search(mesh, qq, tt, qmask, tmask),
+            {kern: lambda n: n >= MESH_N * MESH_N})
+        torch.cuda.synchronize()
+        t0 = time.time()
+        d2w, iw = tnn.nn_search(qq, tt, qmask, tmask)
+        torch.cuda.synchronize()
+        whole_s = time.time() - t0
+        gap = (d2r - d2w).abs()[qmask]
+        allowed = RING_TOL + RING_TOL * d2w.abs()[qmask]
+        idx_equal = (ir == iw)[qmask].float().mean().item()
+        if idx_equal < 1.0 or bool((gap > allowed).any()):
+            fail(f"path Q3 ({label}): indices equal on {idx_equal:.6%} of valid rows, worst d2 "
+                 f"gap {gap.max().item():.3g} (every index equal and rtol = atol = {RING_TOL} "
+                 f"required)")
+        # One ring step's shape: up to 8192 queries of shard 0 against target
+        # shard 0 and its mask, no query mask, as the ring calls it.
+        nt_s = tt.shape[0] // MESH_N
+        qs = qq[:min(8192, qq.shape[0] // MESH_N)].contiguous()
+        ts, tms = tt[:nt_s].contiguous(), tmask[:nt_s].contiguous()
+        d2k, ik = tnn.nn_search_tiled(qs, ts, None, tms)
+        d2p, ip = tnn.nn_search_tiled_plain(qs, ts, None, tms)
+        torch.cuda.synchronize()
+        agree = (ik == ip).float().mean().item()
+        err = (d2k - d2p).abs().max().item()
+        scale = (torch.sum(qs * qs, -1).max() + torch.sum(ts[tms] ** 2, -1).max()).item()
+        if kern == "nn_tiled_smalld" and (agree < 1.0 or err > 0.0):
+            fail(f"path Q3: {kern} at a ring step's shape: picks equal on {agree:.6%}, max |d2| "
+                 f"error {err:.3g} (exact expected)")
+        if kern == "nn_tiled_wide" and (agree < 0.999 or err > 2e-6 * scale):
+            fail(f"path Q3: {kern} at a ring step's shape: picks equal on {agree:.4%}, max |d2| "
+                 f"error {err:.3g}")
+        out[key] = counts
+        log(f"path Q3 (ring_nn_search on 1x{MESH_N}, {label}: {qq.shape[0]} x {tt.shape[0]}, "
+            f"{int(qmask.sum())} valid queries): ring {ring_s:.3f} s, whole search "
+            f"{whole_s:.3f} s; indices equal on every valid row, worst d2 gap "
+            f"{gap.max().item():.3g} ({(gap / allowed).max().item():.3f} of the bound); "
+            f"{kern} at a ring step ({qs.shape[0]} x {nt_s}) against its plain version: picks "
+            f"equal {agree:.6f}, max |d2| err {err:.3g}; launches {kern} {counts[kern]}")
+        del d2r, ir, d2w, iw, d2k, ik, d2p, ip
+    del fq, ft, fqm, ftm, q
+    torch.cuda.empty_cache()
+
+    # Kernel 6 at the block-sparse ring's first step: source shard 0 moved by
+    # A's downsampled-ICP pose against target shard 0, both KD-sorted shards.
+    blk = src.block
+    sp_sh, spm, _ = sharded_icp._prep_blocksparse_shards(src_pts, None, MESH_N, blk)
+    tp_sh, _, _ = sharded_icp._prep_blocksparse_shards(tgt_pts, None, MESH_N, blk)
+    n_s = sp_sh.shape[0] // MESH_N
+    qs = torch.from_numpy(sp_sh[:n_s]).to(dev)
+    qs = torch.where(torch.from_numpy(spm[:n_s]).to(dev)[:, None], se3.apply(a["mid"], qs),
+                     qs).contiguous()
+    ts = torch.from_numpy(tp_sh[:n_s]).to(dev)
+    table, _ = nn_sparse.candidate_blocks(qs, ts, blk, 8)
+    d2k, ik = nn_sparse.nn_search_table(qs, ts, table, block=blk)
+    d2p, ip = nn_sparse.nn_search_table_plain(qs, ts, table, block=blk)
+    torch.cuda.synchronize()
+    if not (torch.equal(ik, ip) and torch.equal(d2k, d2p)):
+        fail("path Q4: nn_blocksparse at the ring's first step differs from its plain version "
+             "(exact expected)")
+    log(f"path Q4: nn_blocksparse at the block-sparse ring's first step ({n_s} x {n_s}, "
+        f"{table.shape[0]} blocks x w {table.shape[1]}) equal to its plain version")
+    del qs, ts, table, d2k, ik, d2p, ip
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    meshes = [(f"1x{MESH_N} on one card", mesh, "Q4")]
+    many = real_mesh(dev, "block")
+    if many is not None:
+        meshes.append((f"1x{many.shape['block']}, a shard a card (Q6)", many, "Q6"))
+    for mlabel, m, tag in meshes:
+        for block_sparse in (True, False):
+            ring = "block-sparse" if block_sparse else "dense"
+            # Kernel 4: the donor normals, and on the dense ring nb^2 ring
+            # steps an ICP iteration.
+            steps = 0 if block_sparse else m.shape["block"] ** 2
+            need = {"ransac_score": lambda n: n > 0,
+                    "nn_tiled_smalld": lambda n, steps=steps: n > steps}
+            if block_sparse:
+                need["nn_blocksparse"] = lambda n: n > 0
+            walls = []
+            for _ in ("cold", "warm"):
+                (fine, _), counts, wall, _ = counted(
+                    f"path {tag} register_arrays_large ({mlabel}, {ring} ring)",
+                    lambda: large.register_arrays_large(src_pts, tgt_pts, cfg, device=dev, mesh=m,
+                                                        mesh_block_sparse=block_sparse), need)
+                walls.append(wall)
+                rot, rmse = gate(fine.transformation)
+                if rot >= LARGE_GATE_ROT_DEG or rmse >= LARGE_GATE_RMSE:
+                    fail(f"path {tag} ({ring} ring) quality gate: rot {rot:.4f} deg, "
+                         f"rmse {rmse:.3g}")
+            d_rot, d_t = apart(fine.transformation[None], fine_a.transformation[None])
+            if d_rot >= MESH_LARGE_GAP_DEG or d_t >= MESH_LARGE_GAP_T:
+                fail(f"path {tag} ({ring} ring): {d_rot:.4f} deg, t {d_t:.3g} from path A's "
+                     f"single-device pose (bound {MESH_LARGE_GAP_DEG} deg, {MESH_LARGE_GAP_T})")
+            out[f"{tag}{'s' if block_sparse else 'd'}"] = counts
+            log(f"path {tag} (register_arrays_large, mesh {mlabel}, {ring} ring, "
+                f"{LARGE_POINTS} points, voxel 0.3): cold {walls[0]:.3f} s, warm "
+                f"{walls[1]:.3f} s; rot {rot:.4f} deg, rmse {rmse:.3g}, fitness "
+                f"{float(fine.fitness):.4f}, full-res ICP iterations {int(fine.iterations)}; "
+                f"from path A's pose {d_rot:.5f} deg, t {d_t:.3g}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+    return out
 
 
 def large_phases(dev, results: dict) -> dict:
@@ -2749,7 +3152,7 @@ def large_phases(dev, results: dict) -> dict:
 
     stage_names = ("host voxel", "features", "coarse (RANSAC + verify)", "downsampled ICP",
                    "host kd_perm", "donor normals", "full-res ICP")
-    data, path_launches = {}, {}
+    data, path_launches, fines = {}, {}, {}
     for name, voxel, needed in LARGE_PATHS:
         cfg = PipelineConfig.with_voxel_size(voxel)
         walls = []
@@ -2770,6 +3173,7 @@ def large_phases(dev, results: dict) -> dict:
             if rot >= LARGE_GATE_ROT_DEG or rmse >= LARGE_GATE_RMSE:
                 fail(f"path {name} quality gate: rot {rot:.4f} deg, rmse {rmse:.3g}")
         path_launches[name] = counts
+        fines[name] = fine
         ms, iters, data[name] = staged(cfg)
         sd, td = data[name]["sd"], data[name]["td"]
         log(f"path {name} (voxel {voxel}; down {int(sd.mask.sum())}/{sd.capacity} and "
@@ -2785,6 +3189,10 @@ def large_phases(dev, results: dict) -> dict:
         if name == "A":
             profile_report(lambda: large.register_arrays_large(src_pts, tgt_pts, cfg, device=dev),
                            f"path {name}")
+    torch.cuda.empty_cache()
+
+    # --- Q3, Q4 (and Q6): the ring NN and the sharded refinement -------------
+    path_launches.update(mesh_large_paths(dev, src_pts, tgt_pts, data["A"], fines["A"], gate))
     torch.cuda.empty_cache()
 
     # --- kernels 3-6 against their plain versions, at the paths' shapes ------

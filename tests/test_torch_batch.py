@@ -188,8 +188,8 @@ def test_generator_draws_pair_after_pair(mixed):
 @pytest.mark.parametrize("case", ["rows", "shape", "extra", "mesh", "names"])
 def test_batch_rejects_bad_arguments(mixed, case):
     """pair_bits of the wrong count or shape raise (as the fused step does
-    for its sample_bits); the adaptive budget needs its extra bits; mesh is
-    not ported; a checkpoint needs pair names."""
+    for its sample_bits); the adaptive budget needs its extra bits; a mesh
+    must be a parallel.mesh.Mesh; a checkpoint needs pair names."""
     _, ppairs, keys, _, _ = mixed
     bits = _bits(keys)
     kw = {
@@ -199,7 +199,7 @@ def test_batch_rejects_bad_arguments(mixed, case):
         "mesh": dict(mesh=object()),
         "names": dict(checkpoint=object()),
     }[case]
-    err = NotImplementedError if case == "mesh" else ValueError
+    err = TypeError if case == "mesh" else ValueError
     with pytest.raises(err):
         pbatch.register_pairs_batched(ppairs, PCFG, device="cpu", **KW, **kw)
 

@@ -1387,6 +1387,160 @@ def test_fused_step_pair_does_not_follow_the_batch_size(cuda_device):
 
 
 @pytest.mark.gpu
+def test_batched_register_mesh_on_one_card_is_bit_equal(cuda_device):
+    """``batched_register`` on a simulated mesh of four pair shards on one
+    card ([cuda] * 4) is the same bits as on the one-device mesh: the shard
+    split, the per-shard fused steps and the gather change no pair."""
+    from tpu3dm_torch.parallel.mesh import make_mesh
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.parallel.register import batched_register
+
+    padded, knobs = _fused_batch_inputs(cuda_device)
+    lanes = [i % (len(padded) // 2) for i in range(16)]
+    src = [torch.stack([padded[2 * i][k] for i in lanes]) for k in (0, 1, 2)]
+    tgt = [torch.stack([padded[2 * i + 1][k] for i in lanes]) for k in (0, 1, 2, 3)]
+    bits = draw_bits((16,) + knobs.bits_shape(1024)[0], torch.Generator().manual_seed(6))
+    kw = dict(dist_thresh=knobs.dist_thresh, icp_thresh=knobs.icp_thresh,
+              ransac_iterations=knobs.ransac_iterations, icp_iterations=knobs.icp_iterations,
+              icp_solves_per_nn=knobs.icp_solves_per_nn, approx_score=knobs.approx_score)
+
+    def run(n_pair):
+        mesh = make_mesh(n_pair, 1, devices=[cuda_device] * n_pair)
+        return batched_register(mesh, *src, None, *tgt, bits, **kw)
+
+    one, four = run(1), run(4)
+    for k in range(3):
+        assert torch.equal(four[k], one[k]), k
+
+
+@pytest.fixture
+def cards(cuda_device):
+    """Every visible card; skips below two (the tests that need them run on
+    a machine with several cards)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA cards, found {n}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_batched_register_mesh_over_cards_is_bit_equal(cards):
+    """A pair shard on each card gives the bits of one shard on card 0."""
+    from tpu3dm_torch.parallel.mesh import make_mesh
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.parallel.register import batched_register
+
+    padded, knobs = _fused_batch_inputs(cards[0])
+    n = 4 * len(cards)
+    lanes = [i % (len(padded) // 2) for i in range(n)]
+    src = [torch.stack([padded[2 * i][k] for i in lanes]) for k in (0, 1, 2)]
+    tgt = [torch.stack([padded[2 * i + 1][k] for i in lanes]) for k in (0, 1, 2, 3)]
+    bits = draw_bits((n,) + knobs.bits_shape(1024)[0], torch.Generator().manual_seed(7))
+    kw = dict(dist_thresh=knobs.dist_thresh, icp_thresh=knobs.icp_thresh,
+              ransac_iterations=knobs.ransac_iterations, icp_iterations=knobs.icp_iterations,
+              icp_solves_per_nn=knobs.icp_solves_per_nn, approx_score=knobs.approx_score)
+    one = batched_register(make_mesh(1, 1, devices=cards[:1]), *src, None, *tgt, bits, **kw)
+    many = batched_register(make_mesh(len(cards), 1), *src, None, *tgt, bits, **kw)
+    for k in range(3):
+        assert torch.equal(many[k], one[k]), k
+
+
+# Pair-sharded RANSAC on a 2x1 mesh and the ring ICP on a 1x2 mesh: run by
+# each NCCL process and by the one-process mesh over the same two cards.
+_MESH_CASES = """
+import numpy as np
+import torch
+
+from tpu3dm_torch.core import se3
+from tpu3dm_torch.parallel.multipair import batched_ransac
+from tpu3dm_torch.parallel.sharded_icp import icp_refine_sharded
+from tpu3dm_torch.registration.hypotheses import sample_row_count
+
+
+def mesh_cases(pair_mesh, block_mesh):
+    rng = np.random.default_rng(0)
+    p = rng.normal(size=(4, 256, 3)).astype(np.float32)
+    bits = torch.from_numpy(rng.integers(0, 1 << 32, (4, 2, sample_row_count(256, 256)),
+                                         dtype=np.int64))
+    home = pair_mesh.home
+    Ts, fit = batched_ransac(pair_mesh, torch.from_numpy(p).to(home),
+                             torch.from_numpy(p + 0.01).to(home),
+                             torch.ones(4, 256, dtype=torch.bool, device=home), bits,
+                             dist_thresh=0.1, iterations=512, batch_size=256)
+    tgt = rng.normal(size=(200_001, 3)).astype(np.float32)
+    nrm = rng.normal(size=tgt.shape).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    Tinv = torch.linalg.inv(se3.exp_se3(torch.tensor([0.02, -0.01, 0.015, 0.03, -0.02, 0.01])))
+    src = (tgt @ Tinv[:3, :3].numpy().T + Tinv[:3, 3].numpy()).astype(np.float32)
+    res = icp_refine_sharded(block_mesh, src, tgt, np.eye(4), tgt_normals=nrm,
+                             dist_thresh=0.3, max_iterations=10)
+    return dict(Ts=Ts.cpu().numpy(), fit=fit.cpu().numpy(),
+                T=res.transformation.cpu().numpy(), fitness=res.fitness.cpu().numpy(),
+                it=res.iterations.numpy())
+"""
+
+_NCCL_WORKER = _MESH_CASES + """
+import sys
+
+coord, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+from tpu3dm_torch.parallel.mesh import initialize_distributed, make_mesh
+
+initialize_distributed(coordinator=coord, num_processes=2, process_id=rank, backend="nccl")
+import torch.distributed as dist
+
+card = [torch.device("cuda", rank)]
+res = mesh_cases(make_mesh(2, 1, devices=card), make_mesh(1, 2, devices=card))
+np.savez(out, **res)
+dist.destroy_process_group()
+print(f"rank {rank}: OK", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_two_process_nccl_mesh_equals_one_process(cards, tmp_path):
+    """Two NCCL processes, one card each, against the one-process mesh over
+    the same two cards: pair-sharded RANSAC and the dense ring ICP on
+    200,001 points (kernel 4 in every ring step), bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from tpu3dm_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "worker.py"
+    script.write_text(_NCCL_WORKER)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), f"127.0.0.1:{port}", str(r), str(tmp_path / f"r{r}.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0])
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"rank {r}: OK" in out, out[-3000:]
+    cases: dict = {}
+    exec(_MESH_CASES, cases)
+    ref = cases["mesh_cases"](make_mesh(2, 1, devices=cards[:2]),
+                              make_mesh(1, 2, devices=cards[:2]))
+    assert ref["fit"].min() > 0.99 and float(ref["fitness"]) > 0.99
+    for r in range(2):
+        got = np.load(tmp_path / f"r{r}.npz")
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"rank {r}: {k}")
+
+
+@pytest.mark.gpu
 def test_knn_features_do_not_follow_the_cloud_count(cuda_device):
     """``preprocess_points_batch(..., full_normals=False)``, the kNN feature
     route of the server (one cloud a request) and the stream's generic

@@ -524,7 +524,7 @@ def test_register_arrays_large_generator_is_deterministic():
 
 def test_register_arrays_large_rejects_unported_options():
     z = np.zeros((600, 3), np.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         plarge.register_arrays_large(z, z, device="cpu", mesh=object())
     with pytest.raises(ValueError):
         plarge.coarse_pose_with_verification(None, None, PCFG, restarts=0)

@@ -462,7 +462,7 @@ def test_register_multiway_batched_draws_bits_in_edge_order(views, batched):
 
 def test_multiway_entry_points_refuse_mesh_and_need_cuda(views, monkeypatch):
     _, pclouds, _ = views
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="Mesh"):
         ppg.register_multiway_batched(pclouds, PCFG, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match=">= 2 clouds"):
         ppg.register_multiway_batched(pclouds[:1], PCFG, device="cpu")

@@ -41,6 +41,13 @@ def test_port_imports_no_jax(path):
     assert not roots & {"jax", "jaxlib", "tpu3dm"}, roots
 
 
+@pytest.mark.parametrize("name", ["mesh", "ring_nn", "sharded_ransac", "register", "sharded_icp",
+                                  "multipair"])
+def test_parallel_modules_are_scanned(name):
+    """Every module of the port's parallel/ is in the scan above."""
+    assert ROOT / "tpu3dm_torch" / "parallel" / f"{name}.py" in PORT_FILES
+
+
 def test_import_needs_no_triton_nvcc_or_gpu():
     """Every module imports in a process where triton cannot be imported and
     neither nvcc nor a host C++ compiler can be found, and importing loads

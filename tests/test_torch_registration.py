@@ -283,7 +283,7 @@ def test_fused_register_step_rejects_unported_options(case):
     (tests/test_torch_values_route.py, test_torch_rescue.py); the step
     rejects bits of the wrong shape for its sampler, for the rescue's
     restarts (no restart axis) or for their extra chunks, and the large
-    path its unported sharded refinement."""
+    path a mesh that is not a parallel.mesh.Mesh."""
     z3 = np.zeros((1, 16, 3), np.float32)
     f = np.zeros((1, 16, 33), np.float32)
     m = np.ones((1, 16), bool)
@@ -305,5 +305,5 @@ def test_fused_register_step_rejects_unported_options(case):
         from tpu3dm_torch.registration.large import register_arrays_large
 
         pts = np.zeros((64, 3), np.float32)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             register_arrays_large(pts, pts, mesh=object(), device="cpu")

@@ -309,7 +309,7 @@ def test_engine_errors_reach_the_futures(pairs):
 
 
 def test_engine_mesh_raises(pairs):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ServeEngine(PCFG, SERVE, mesh=object(), **CPU)
 
 

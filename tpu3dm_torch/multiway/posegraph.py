@@ -21,8 +21,8 @@ seed an edge from ``generator`` (cached edge or not, so a resumed run
 equals an uninterrupted one) or takes each edge's ``register_pair`` bits
 from ``edge_bits``; ``register_multiway_batched`` draws each edge's
 ``fused_register_step`` bits (``batch.pair_bits_shape``) in edge order or
-takes ``edge_bits``.  JAX's ``mesh`` (the pair-sharded fan-out) is not
-ported: anything but None raises.
+takes ``edge_bits``.  With a ``mesh`` the batched fan-out splits each
+chunk of edges, with their bits, over the mesh's pair axis (parallel/).
 """
 
 from __future__ import annotations
@@ -34,8 +34,10 @@ import torch
 
 from tpu3dm_torch import resolve_device
 from tpu3dm_torch.core import se3
+from tpu3dm_torch.core.cloud import round_up
 from tpu3dm_torch.core.config import PipelineConfig
 from tpu3dm_torch.multiway.checkpoint import CheckpointStore, EdgeRecord
+from tpu3dm_torch.parallel.mesh import PAIR_AXIS, check_mesh, map_shards
 from tpu3dm_torch.parallel.multipair import draw_bits
 
 # Node count from which the solve assembles edgewise Jacobian blocks (O(E)
@@ -402,14 +404,16 @@ def register_multiway_batched(
 
     Checkpointing is batch-granular, as JAX's: when every edge is stored the
     stored edges are reused, otherwise every edge is registered and stored.
-    ``mesh`` (the pair-sharded fan-out, parallel/) is not ported.
+    ``mesh``: a ``parallel.mesh.Mesh``; the chunk width is rounded up to a
+    multiple of its pair axis (JAX's quantum), each chunk's edges and bits
+    are split over that axis, and the edges' results equal the call without
+    a mesh, bit for bit.
     """
     from tpu3dm_torch.registration.batch import pair_bits_shape
     from tpu3dm_torch.registration.fused import fused_register_step
 
     if mesh is not None:
-        raise NotImplementedError(
-            "register_multiway_batched: the mesh-sharded fan-out (parallel/) is not ported")
+        check_mesh("register_multiway_batched", mesh)
     dev = resolve_device(device)
     n, edges, config, store = _start(clouds, config, edges, checkpoint_dir)
     edge_bits = _checked_edge_bits(edge_bits, len(edges))
@@ -438,7 +442,10 @@ def register_multiway_batched(
         edge_bits = [draw_bits(shape, gen) for _ in range(n_edges)]
     bits = torch.stack([torch.as_tensor(b) for b in edge_bits])
     e_np = np.asarray(edges, np.int64)
-    chunk_w = min(EDGE_CHUNK, n_edges)
+    # Chunks of equal width, padded with repeats of edge 0 (and its bits) to
+    # a multiple of the mesh's pair axis; padded lanes are sliced off.
+    quantum = mesh.shape[PAIR_AXIS] if mesh is not None else 1
+    chunk_w = round_up(min(EDGE_CHUNK, round_up(n_edges, quantum)), quantum)
     e_pad = -(-n_edges // chunk_w) * chunk_w
     if e_pad > n_edges:
         e_np = np.concatenate([e_np, np.repeat(e_np[:1], e_pad - n_edges, 0)])
@@ -446,17 +453,25 @@ def register_multiway_batched(
     si = torch.as_tensor(e_np[:, 0], device=dev)
     ti = torch.as_tensor(e_np[:, 1], device=dev)
 
-    outs = []
-    for lo in range(0, e_pad, chunk_w):
-        s, t = si[lo:lo + chunk_w], ti[lo:lo + chunk_w]
-        outs.append(fused_register_step(
-            pts[s], feat[s], msk[s], None, pts[t], feat[t], msk[t], nrm[t],
-            bits[lo:lo + chunk_w], device=dev,
+    def run(d, s, t, b):
+        """The fused step over edges (s, t) with bits b on device d."""
+        p_, f_, m_, n_ = (x.to(d) for x in (pts, feat, msk, nrm))
+        s, t = s.to(d), t.to(d)
+        return fused_register_step(
+            p_[s], f_[s], m_[s], None, p_[t], f_[t], m_[t], n_[t], b, device=d,
             dist_thresh=config.ransac.dist_thresh, icp_thresh=config.icp.dist_thresh,
             ransac_iterations=ransac_iterations, ransac_batch=min(ransac_iterations, 4096),
             icp_iterations=icp_iterations, icp_solves_per_nn=icp_solves_per_nn,
             approx_score=approx_score, mutual_filter=config.ransac.mutual_filter,
-            rescue_restarts=rescue_restarts))
+            rescue_restarts=rescue_restarts)
+
+    outs = []
+    for lo in range(0, e_pad, chunk_w):
+        chunk = (si[lo:lo + chunk_w], ti[lo:lo + chunk_w], bits[lo:lo + chunk_w])
+        if mesh is None:
+            outs.append(run(dev, *chunk))
+        else:
+            outs.append(map_shards(mesh.line(PAIR_AXIS), run, *chunk, out=3))
     T_np, fit_np, rmse_np = (torch.cat([o[k] for o in outs])[:n_edges].cpu().numpy()
                              for k in range(3))
     T_list = list(T_np)

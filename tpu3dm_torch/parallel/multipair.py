@@ -7,6 +7,8 @@ chunks run as a Python loop, and the sample bits come from the caller or a
 (optionally with two-stage scoring), two-mode (the leader and the best
 rotation-far hypothesis) and N-mode (``n_modes`` rotation-separated support
 peaks), with the roll or the gather sampler and the adaptive budget.
+``batched_ransac`` runs it with the pair axis sharded over a mesh
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from tpu3dm_torch.ops.compact import compaction_permutation
 from tpu3dm_torch.ops.ransac_score import corres_features
 from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, small_matvec
+from tpu3dm_torch.parallel.mesh import PAIR_AXIS, map_shards
 from tpu3dm_torch.registration.hypotheses import (
     fit_score_gathers,
     refit_inliers,
@@ -330,3 +333,43 @@ def ransac_pair_step(
 
     T1, c1, T2, c2 = run(chunk2, (eye, none, eye, none), lambda cr: cr[1])
     return finalize(torch.stack([T1, T2], 1), torch.stack([c1, c2], 1))
+
+
+def batched_ransac(
+    mesh,
+    p_batch: torch.Tensor,
+    q_batch: torch.Tensor,
+    valid_batch: torch.Tensor,
+    sample_bits: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    *,
+    dist_thresh: float,
+    iterations: int = 4096,
+    batch_size: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Register a batch of pairs, the pair axis sharded over the mesh.
+
+    Args:
+      mesh: a ``parallel.mesh.Mesh``; P must be a multiple of its pair axis.
+      p_batch, q_batch: [P, M, 3] correspondence points; valid_batch [P, M].
+      sample_bits: [P, n_chunks, m_s] (``ransac_pair_step``'s roll-sampler
+        bits, one row a pair: JAX's per-pair key), drawn from ``generator``
+        when None.  Each shard runs ``ransac_pair_step`` on its own pairs'
+        bits, so a pair's result does not depend on the mesh.
+
+    Returns (T [P, 4, 4], fitness [P] = count / max(n_valid, 1)) on the
+    mesh's home device.
+    """
+    b, m = valid_batch.shape
+    n_chunks = max(1, iterations // batch_size)
+    sample_bits = checked_bits("sample_bits", sample_bits,
+                               (b, n_chunks) + chunk_bits_shape(m, batch_size), generator, "cpu")
+
+    def shard(dev, p, q, v, bits):
+        return ransac_pair_step(p, q, v, bits, dist_thresh=dist_thresh, iterations=iterations,
+                                batch_size=batch_size)
+
+    Ts, counts = map_shards(mesh.line(PAIR_AXIS), shard, p_batch, q_batch, valid_batch,
+                            sample_bits, out=2)
+    n_valid = torch.clamp_min(torch.sum(valid_batch.to(torch.int32), dim=1), 1).to(counts.device)
+    return Ts, counts.to(torch.float32) / n_valid.to(torch.float32)

@@ -28,13 +28,16 @@ order from ``generator`` (a generator seeded 0 when None, as JAX's default
 key is PRNGKey(0)).  A pair's bits therefore never depend on its bucket or
 on the window a streaming caller cuts, as JAX guarantees with its keys.
 
-Two deliberate departures from JAX:
-  - No power-of-two padding of a bucket's pair axis.  JAX pads it so that
-    repeated calls reuse a few compiled programs; eager PyTorch compiles
-    nothing, so a bucket runs exactly its pairs, and a pair's result does
-    not depend on which pairs share its bucket.
-  - ``mesh`` raises NotImplementedError: the pair-sharded dispatch
-    (JAX's parallel/register.py) is not ported yet.
+With a ``mesh`` (parallel/mesh.py) each bucket goes through
+``parallel.register.batched_register``: its pair axis is padded to a
+multiple of the mesh's pair axis with repeats of its first pair and that
+pair's bits (JAX's quantum pad), split over the mesh, and the padded lanes
+dropped; a pair's result is the same bits as without the mesh.
+
+One deliberate departure from JAX: no power-of-two padding of a bucket's
+pair axis.  JAX pads it so that repeated calls reuse a few compiled
+programs; eager PyTorch compiles nothing, so a bucket runs its pairs and
+at most the mesh's quantum of repeats.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from tpu3dm_torch import resolve_device
 from tpu3dm_torch.core.cloud import round_up
 from tpu3dm_torch.core.config import PipelineConfig
 from tpu3dm_torch.multiway.checkpoint import EdgeRecord
+from tpu3dm_torch.parallel.mesh import PAIR_AXIS, check_mesh
 from tpu3dm_torch.parallel.multipair import chunk_bits_shape, draw_bits, extra_chunk_count
+from tpu3dm_torch.parallel.register import batched_register
 from tpu3dm_torch.preprocess.pipeline import ProcessedCloud
 from tpu3dm_torch.registration.fused import fused_register_step
 
@@ -149,15 +154,14 @@ class _Knobs:
                                rescue_restarts=self.rescue_restarts, sample_mode=self.sample_mode,
                                adapt_iterations=self.adapt_iterations)
 
-    def step(self, src, tgt, bits, extra, dev):
+    def step(self, src, tgt, bits, extra, dev, mesh=None):
         """One bucket: src = (points, features, mask), tgt = (points,
-        features, mask, normals), each [b, cap, ...]."""
-        return fused_register_step(
-            *src, None, *tgt, bits, extra_bits=extra, device=dev,
+        features, mask, normals), each [b, cap, ...]; with a mesh, b is a
+        multiple of its pair axis."""
+        kw = dict(
             dist_thresh=self.dist_thresh,
             icp_thresh=self.icp_thresh,
             ransac_iterations=self.ransac_iterations,
-            ransac_batch=min(self.ransac_iterations, 4096),
             icp_iterations=self.icp_iterations,
             icp_solves_per_nn=self.icp_solves_per_nn,
             approx_score=self.approx_score,
@@ -167,6 +171,10 @@ class _Knobs:
             sample_mode=self.sample_mode,
             adapt_iterations=self.adapt_iterations,
         )
+        if mesh is not None:
+            return batched_register(mesh, *src, None, *tgt, bits, extra_bits=extra, **kw)
+        return fused_register_step(*src, None, *tgt, bits, extra_bits=extra, device=dev,
+                                   ransac_batch=min(self.ransac_iterations, 4096), **kw)
 
 
 class _PairBits:
@@ -329,8 +337,7 @@ def launch_pairs_batched(
     """Pack and dispatch the buckets of ``register_pairs_batched`` and return
     a ``PendingBatch``; see ``register_pairs_batched`` for the arguments."""
     if mesh is not None:
-        raise NotImplementedError(
-            "launch_pairs_batched: the mesh-sharded dispatch (parallel/) is not ported")
+        check_mesh("launch_pairs_batched", mesh)
     if checkpoint is not None and pair_names is None:
         raise ValueError("checkpoint requires pair_names")
     knobs = _Knobs.of(config, rescue_restarts=rescue_restarts, score_subset=score_subset,
@@ -361,13 +368,18 @@ def launch_pairs_batched(
         if i not in done:
             buckets.setdefault(cap, []).append(i)
 
+    quantum = mesh.shape[PAIR_AXIS] if mesh is not None else 1
     launched = []
     for cap, idxs in sorted(buckets.items()):
-        src = [tights.padded(pairs[i][0], cap) for i in idxs]
-        tgt = [tights.padded(pairs[i][1], cap) for i in idxs]
-        b, extra = bits.of(idxs)
-        out = knobs.step(_stacked(src, (0, 1, 2)), _stacked(tgt, (0, 1, 2, 3)), b, extra, dev)
-        launched.append((cap, idxs, out))
+        # The mesh's quantum: repeats of the bucket's first pair (and its
+        # bits), dropped after the step.
+        lanes = idxs + [idxs[0]] * (round_up(len(idxs), quantum) - len(idxs))
+        src = [tights.padded(pairs[i][0], cap) for i in lanes]
+        tgt = [tights.padded(pairs[i][1], cap) for i in lanes]
+        b, extra = bits.of(lanes)
+        out = knobs.step(_stacked(src, (0, 1, 2)), _stacked(tgt, (0, 1, 2, 3)), b, extra, dev,
+                         mesh)
+        launched.append((cap, idxs, tuple(x[:len(idxs)] for x in out)))
     return PendingBatch(n_pairs, launched, done, checkpoint=checkpoint, pair_names=pair_names,
                         iterations=ransac_iterations)
 
@@ -385,7 +397,9 @@ def register_pairs_batched(
       config: pipeline config (thresholds); defaults to voxel 0.3 constants.
       generator / pair_bits / pair_extra_bits: each pair's RANSAC bits (see
         the module docstring and ``pair_bits_shape``); a wrong shape raises.
-      mesh: not ported; anything but None raises NotImplementedError.
+      mesh: optional ``parallel.mesh.Mesh``: each bucket is padded to a
+        multiple of its pair axis and split over it (``batched_register``);
+        results equal the call without a mesh, bit for bit.
       bucket_multiple: capacity quantum for grouping.
       ransac_iterations / icp_iterations / icp_solves_per_nn / approx_score /
         sample_mode: per-pair work knobs.

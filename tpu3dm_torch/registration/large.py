@@ -10,7 +10,10 @@ entries).  The KD partition of each cloud is host C++ (csrc/host.cpp),
 done once per cloud: the source's blocks move rigidly under ICP and stay
 compact.
 
-The sharded path (``mesh``) is not ported.
+With a ``mesh`` the full-resolution refinement is
+``parallel.sharded_icp.icp_refine_sharded`` over the mesh's block axis: the
+dense ring by default, the block-sparse ring with ``mesh_block_sparse``;
+the donor normals are un-sorted to the caller's point order for it.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from tpu3dm_torch.core.cloud import PointCloud
 from tpu3dm_torch.core.config import PipelineConfig
 from tpu3dm_torch.ops.nn import nn_search
 from tpu3dm_torch.ops.nn_sparse import kd_perm, nn_blocksparse, pad_sorted
+from tpu3dm_torch.parallel.mesh import check_mesh
 from tpu3dm_torch.parallel.multipair import f32_square
+from tpu3dm_torch.parallel.sharded_icp import icp_refine_sharded
 from tpu3dm_torch.preprocess.pipeline import down_features
 from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
 from tpu3dm_torch.registration.fused import RESCUE_OVERRIDE_MARGIN, RESCUE_TIE_RATIO
@@ -204,13 +209,15 @@ def register_arrays_large(
     ``coarse_pose_with_verification``), else ``generator``, else a
     ``torch.Generator`` seeded with ``key`` (0 when None).  JAX's PRNG keys
     cannot be reproduced in torch.  ``device=None`` means CUDA and raises
-    when CUDA is absent; ``mesh`` (the sharded refinement) is not ported.
+    when CUDA is absent; the coarse stage runs there.  ``mesh``: the
+    refinement sharded over its block axis (``icp_refine_sharded``, the
+    block-sparse ring when ``mesh_block_sparse``); the result then lies on
+    the mesh's home device.
 
     Returns (RegistrationResult of the refinement, coarse RegistrationResult).
     """
-    del mesh_block_sparse  # read by the sharded path only
     if mesh is not None:
-        raise NotImplementedError("register_arrays_large: the sharded path (mesh) is not ported")
+        check_mesh("register_arrays_large", mesh)
     dev = resolve_device(device)
     if config is None:
         config = PipelineConfig.with_voxel_size(0.3)
@@ -238,6 +245,21 @@ def register_arrays_large(
         dist_thresh=config.icp.dist_thresh, max_iterations=config.icp.max_iterations,
         point_to_plane=True,
     )
+    if mesh is not None:
+        nrm = None
+        if point_to_plane:
+            # donor_normals works in the KD-sorted order; the sharded ICP
+            # takes the caller's point order.
+            tgt_tmp = prepare_large_cloud(tgt_pts, block=block, device=dev)
+            n = tgt_tmp.n
+            nrm = np.empty((n, 3), np.float32)
+            nrm[tgt_tmp.perm] = donor_normals(tgt_tmp, tgt_down)[:n].cpu().numpy()
+        fine = icp_refine_sharded(
+            mesh, src_pts, tgt_pts, mid.transformation, tgt_normals=nrm,
+            dist_thresh=config.icp.dist_thresh, max_iterations=config.icp.max_iterations,
+            point_to_plane=point_to_plane, block_sparse=mesh_block_sparse, block=block, w=w,
+        )
+        return fine, coarse
     src = prepare_large_cloud(src_pts, block=block, device=dev)
     tgt = prepare_large_cloud(tgt_pts, block=block, device=dev)
     if point_to_plane:

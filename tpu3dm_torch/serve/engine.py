@@ -25,8 +25,10 @@ Departures from JAX, each forced by eager PyTorch on one card:
   - ``prewarm`` has no compile to pay: it builds the kernels (csrc) and runs
     each (capacity, batch, route) shape once.
   - ``fence_uploads`` synchronizes the engine's CUDA stream.
-  - ``mesh`` raises NotImplementedError: the pair-sharded dispatch
-    (parallel/) is not ported.
+
+With a ``mesh`` every micro-batch goes through ``launch_pairs_batched(mesh=
+...)`` (pair-sharded, parallel/register.py) and the resident-target route
+is skipped, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 from tpu3dm_torch import resolve_device
 from tpu3dm_torch.core.cloud import PointCloud, round_up
 from tpu3dm_torch.core.config import PipelineConfig
+from tpu3dm_torch.parallel.mesh import check_mesh
 from tpu3dm_torch.parallel.multipair import draw_bits
 from tpu3dm_torch.preprocess.pipeline import ProcessedCloud
 from tpu3dm_torch.registration import batch as _batch
@@ -160,8 +163,9 @@ class ServeEngine:
 
     Lifecycle: construct, ``submit()`` / ``register()`` from any number of
     threads, ``close()`` once (drains in-flight requests).  Also a context
-    manager.  ``device=None`` means CUDA and raises without it; ``mesh``
-    raises NotImplementedError until parallel/ is ported.
+    manager.  ``device=None`` means CUDA and raises without it; the
+    requests are packed there.  ``mesh``: a ``parallel.mesh.Mesh`` whose
+    pair axis every micro-batch is split over.
     """
 
     def __init__(
@@ -173,8 +177,7 @@ class ServeEngine:
         device=None,
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine: the mesh-sharded dispatch (parallel/) is not ported")
+            check_mesh("ServeEngine", mesh)
         self.device = resolve_device(device)
         self.pipeline = pipeline or PipelineConfig.with_voxel_size(0.3)
         self.serve = serve
@@ -327,10 +330,10 @@ class ServeEngine:
                 def pair_thunk(cloud=cloud, b=b, bits=bits):
                     _batch.launch_pairs_batched(
                         [(cloud, cloud)] * b, self.pipeline, device=self.device,
-                        **self._bits_kwargs(bits), **kw).resolve()
+                        mesh=self.mesh, **self._bits_kwargs(bits), **kw).resolve()
 
                 thunks.append(pair_thunk)
-                if shared_target and s.target_resident_min > 0:
+                if shared_target and s.target_resident_min > 0 and self.mesh is None:
 
                     def shared_thunk(cloud=cloud, b=b, bits=bits):
                         rt = _batch.ResidentTarget(cloud, max_caps=s.resident_caps_max,
@@ -482,7 +485,7 @@ class ServeEngine:
         try:
             shared: list[tuple[list[int], _batch.ResidentTarget]] = []
             rest = list(range(len(batch)))
-            if s.target_resident_min > 0:
+            if s.target_resident_min > 0 and self.mesh is None:
                 by_tgt: dict[int, list[int]] = {}
                 for pos, p in enumerate(batch):
                     by_tgt.setdefault(id(p.tgt), []).append(pos)
@@ -507,7 +510,7 @@ class ServeEngine:
             if rest:
                 pendings.append((rest, _batch.launch_pairs_batched(
                     [(batch[i].src, batch[i].tgt) for i in rest], self.pipeline,
-                    device=self.device, **bits(rest), **kw)))
+                    device=self.device, mesh=self.mesh, **bits(rest), **kw)))
             if s.fence_uploads and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         except Exception as e:  # noqa: BLE001 - forwarded to the callers' futures
