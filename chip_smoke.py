@@ -166,6 +166,21 @@ Phases (any failure exits non-zero and prints no ok line):
      1-64 fits, the kNN features at 1, 16 and 256 clouds, the pose-graph
      solves' determinism, the crash suite, batched_register on four pair
      shards of one card bit-equal to one shard);
+  6o. phase X, the application layer, in this process: every subcommand of
+     tpu3dm_torch.apps.cli.main once on the card (info --probe, register on
+     a written 20k arch pair, register --large at 1,048,576 points, convert,
+     trim, trace with --out-html / --out-anim, register-batch on a 16-pair
+     manifest whole and at --window 8, multiway on 4 written views, serve
+     with two requests through a client, crashtest, kernels (the full case
+     list), bench), each counted and gated (rotation < 2 deg, RMSE < 0.1;
+     large < 0.01); then the benchmark runners at JAX's widths, cut only in
+     repetitions (serve, stream, overlap, sweep, fpfh A/B, multiway,
+     scaling on the cards there are, large cloud, the scaling model on the
+     kernel report just written); every kernel bench case at most 105% of
+     its bound; kernels 4 and 5 on the kernel bench's inputs and kernel 3's
+     one-lane score against their plain versions; the census's pair mesh
+     with no shift or psum; traced_ransac on the card against the CPU from
+     the same bits;
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
@@ -205,8 +220,8 @@ Phases (any failure exits non-zero and prints no ok line):
      flood), "P" and "P4" (path P's warm calls), "M1", "M2" (a warm call),
      "M3" (the first run), "R" (the three warm calls), "K" (the suite),
      and the mesh paths' counted calls "Q1", "Q2I", "Q2V", "Q2M", "Q3a",
-     "Q3f", "Q4s", "Q4d", "Q5b", "Q5s" (and "Q6", "Q6s", "Q6d")), then the
-     ok line, last.
+     "Q3f", "Q4s", "Q4d", "Q5b", "Q5s" (and "Q6", "Q6s", "Q6d") and phase X's
+     counted calls summed, "X"), then the ok line, last.
 """
 
 from __future__ import annotations
@@ -215,6 +230,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -241,14 +257,6 @@ HARD_LANES = 256
 ESCALATION_MODES = 8
 ALIAS_DEG = 90.0  # path H's odd lanes: init_T turned this far from path E's pose
 KEEP_CORRESPONDENCES = 0.22  # path G: rows that keep their match; the rest shuffled
-# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
-# bandwidth; fp32 outside the tensor cores, 67 TFLOP/s counting an FMA as two
-# flops, so fp32 instructions (an FMA, an add, a multiply, a subtraction each
-# one) issue at half that rate; bf16 tensor cores with fp32 accumulation.
-PEAK_HBM_BYTES = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
-PEAK_BF16_FLOPS = 989e12
 
 
 # Kernel -> (its CUDA source, the TPU kernel it replaces).
@@ -364,6 +372,23 @@ MESH_LARGE_GAP_DEG, MESH_LARGE_GAP_T = 0.1, 5e-4
 # The card tests of the batch-size repair and the mesh, run by pytest in the
 # card-test phase.
 CARD_TESTS = "row_sums or batch_size or cloud_count or pose_graph or crash or mesh"
+# Phase X: the application layer (apps/cli.py, apps/benchmark.py,
+# apps/kernelbench.py, viz/) at JAX's widths (points per cloud, voxel,
+# hypotheses, ICP iterations), cut only in repetitions.
+APP_POINTS = 20_000  # register, trace, multiway views, the batch manifest
+APP_LARGE_POINTS = 1_048_576  # register --large
+APP_BATCH_PAIRS = 16
+APP_BATCH_WINDOW = 8
+APP_MULTIWAY_VIEWS = 4
+APP_BENCH_ITERATIONS = 10  # bench --test-iterations (JAX: 100)
+APP_TRACE_ITERATIONS = 4096  # traced_ransac, card against CPU
+APP_CUTS = ("bench --test-iterations 10 (100); run_serve_benchmark 128 requests (512), "
+            "offered 2 s a rate (8 s); run_stream_benchmark 128 pairs (384); "
+            "run_overlap_benchmark 8 seeds (32), overlaps 1.0 and 0.5 (1.0-0.4); "
+            "run_hypothesis_sweep counts 4096 and 65536 (1024-65536); run_fpfh_ab_benchmark "
+            "seed 0 (0-2); run_multiway_benchmark 16 views (16); run_scaling_benchmark the "
+            "mesh sizes up to the card count (1-8)")
+APP_GATE_RMSE_LARGE = 0.01
 LARGE_GATE_ROT_DEG = 2.0
 LARGE_GATE_RMSE = 0.01
 AGREE_POINTS = 40_000  # path A on the card against the CPU, same sample bits
@@ -392,11 +417,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, *work: tuple[float, float]) -> tuple[float, str]:
+def bound_ms(n_bytes: float, *work: tuple[float, str]) -> tuple[float, str]:
     """The larger of bytes over the memory rate and, for each (operations,
-    peak rate) of ``work``, operations over that rate."""
-    times = [n_bytes / PEAK_HBM_BYTES] + [ops / rate for ops, rate in work]
-    return max(times) * 1e3, ("bytes" if times[0] >= max(times) else "operations")
+    kind) of ``work``, operations over the peak rate of that kind ("fp32":
+    fp32 instructions, "tensor": bf16 tensor-core flops), on the port's one
+    hardware model (tpu3dm_torch/apps/kernelbench.py: PEAKS["cuda"], the
+    H100 SXM's published peaks)."""
+    from tpu3dm_torch.apps.kernelbench import PEAKS, sol_time
+
+    t, bound = sol_time(PEAKS["cuda"], n_bytes, **dict((kind, ops) for ops, kind in work))
+    return t * 1e3, ("bytes" if bound == "hbm" else "operations")
 
 
 def fused_gate(T_gpu, T_true, mu, M2):
@@ -605,7 +635,7 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: nn_lane.nn_search_lane_plain(q, tp, sm, tm), 2),
         library_ms=cuda_ms(lambda: torch.cdist(q, far).argmin(-1), 2),
         bound=bound_ms(12 * (nq.sum() + nt.sum()).item() + b * n + 8 * b * m,
-                       (9.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+                       (9.0 * (nq * nt).sum().item(), "fp32")),
         shape=f"{b} lanes x {m} queries x {n} targets, d 3",
     )
     del d2k, idxk, d2p, idxp, far
@@ -641,7 +671,7 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: nn_lane.nn_mutual_lane_plain(fa, fb, sm, tm), 2),
         library_ms=cuda_ms(mutual_library, 2),
         bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
-                       (35.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+                       (35.0 * (nq * nt).sum().item(), "fp32")),
         shape=f"{b} lanes x {na} x {nb}, d 33",
     )
     # The launch alone, on the wrapper's norms (two torch.sum passes over the
@@ -686,7 +716,7 @@ def main() -> int:
             ms=cuda_ms(call, 5), plain_ms=cuda_ms(plain, 1),
             library_ms=cuda_ms(mutual_library_bf16, 2),
             bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * (na + nb) + 5 * b * na,
-                           (ops * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+                           (ops * (nq * nt).sum().item(), "fp32")),
             shape=f"{b} lanes x {na} x {nb}, d 33, bf16-rounded features"
                   + (", cross rounded to bf16" if cross else ""),
         )
@@ -718,7 +748,7 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: nn_lane.nn_search_lane_plain(fa, fb, sm, tm), 2),
         library_ms=cuda_ms(wide_library, 2),
         bound=bound_ms(132 * (nq.sum() + nt.sum()).item() + b * nb + 8 * b * na,
-                       (34.0 * (nq * nt).sum().item(), PEAK_FP32_OPS)),
+                       (34.0 * (nq * nt).sum().item(), "fp32")),
         shape=f"{b} lanes x {na} x {nb}, d 33",
     )
     # The launch alone, on the wrapper's tsq (the row's ms adds it and |q|^2).
@@ -754,7 +784,7 @@ def main() -> int:
     v_plain = cuda_ms(lambda: nn_lane.nn_search_lane_plain(qv, tp, None, tm), 1)
     v_lib = cuda_ms(verify_library, 1)
     v_bound = bound_ms(12 * (cv * nq.sum() + nt.sum()).item() + b * n + 8 * b * cv * m,
-                       (9.0 * cv * (nq * nt).sum().item(), PEAK_FP32_OPS))
+                       (9.0 * cv * (nq * nt).sum().item(), "fp32"))
     results["lane_nn_smalld"].update(
         ms_verification=v_ms, bound_ms_verification=v_bound[0],
         shape_verification=f"{b} lanes x {cv * m} queries ({cv} candidates) x {n} targets, d 3")
@@ -825,7 +855,7 @@ def main() -> int:
     # instructions (16 FMAs, the adds of c and e, the compare).  Bytes: H
     # (32 B a row in bf16, 64 in fp32), e and the counts in full, valid rows
     # of F and c, the mask.
-    work = ((32.0 * k * nv, PEAK_BF16_FLOPS), (3.0 * k * nv, PEAK_FP32_OPS))
+    work = ((32.0 * k * nv, "tensor"), (3.0 * k * nv, "fp32"))
     library_ms = cuda_ms(score_library, 2)
     shape = f"{b} lanes x K {k} x N {nn_} ({nv:.0f} valid rows)"
     results["ransac_score_bf16"] = dict(
@@ -841,7 +871,7 @@ def main() -> int:
         ms=cuda_ms(lambda: ransac_score.score_features(Hf, e, Ff, c, v, thr), 5),
         plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(Hf, e, Ff, c, v, thr), 2),
         library_ms=library_ms,
-        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * nn_, (19.0 * k * nv, PEAK_FP32_OPS)),
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * nn_, (19.0 * k * nv, "fp32")),
         shape=f"{shape}, fp32 H and F holding bf16 values",
     )
     r, rf = results["ransac_score_bf16"], results["ransac_score"]
@@ -972,13 +1002,17 @@ def main() -> int:
     # --- 6m. the card tests (pytest) ------------------------------------------
     card_tests()
 
+    # --- 6o. phase X: the application layer (apps/, viz/) ------------------------
+    torch.cuda.empty_cache()
+    app_launches = app_paths(dev, cfg)
+
     # --- 7-10. the large-cloud path -----------------------------------------
     torch.cuda.empty_cache()
     large_launches = large_phases(dev, results)
     by_path = {"fused": launches, **rescue_launches, **values_launches, **hard_launches,
                **batch_launches, **stream_launches, **serve_launches, **pipeline_launches,
                **multiway_launches, **route_launches, **crash_launches, **mesh_launches,
-               **large_launches}
+               **app_launches, **large_launches}
     # Kernels 1, 2 and the bf16 score: launches of the fused path's counted
     # step; the fp32 score and 4-6: of path B; 7: of path C.
     row_path = {"ransac_score": "B", "lane_nn_wide": "C",
@@ -1244,7 +1278,7 @@ def rescore_case(H, e, F, c, v, thr) -> dict:
         ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10),
         plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 2),
         library_ms=cuda_ms(score_library, 2),
-        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * n, (19.0 * k * nv, PEAK_FP32_OPS)),
+        bound=bound_ms(b * k * (64 + 4 + 4) + 68 * nv + b * n, (19.0 * k * nv, "fp32")),
         shape=f"{b} lanes x K {k} x N {n} ({nv:.0f} valid rows), fp32 H and F (the rescore)",
     )
     log(f"kernel ransac_score at the rescore shape: counts equal {exact:.6f}, "
@@ -1582,7 +1616,7 @@ def fp32_score_case(sd, td, rc) -> dict:
         ms=cuda_ms(lambda: ransac_score.score_features(H, e, F, c, v, thr), 10),
         plain_ms=cuda_ms(lambda: ransac_score.score_features_plain(H, e, F, c, v, thr), 3),
         library_ms=cuda_ms(score_library, 3),
-        bound=bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (19.0 * k * nv, PEAK_FP32_OPS)),
+        bound=bound_ms(k * (64 + 4 + 4) + 68 * nv + F.shape[1], (19.0 * k * nv, "fp32")),
         shape=f"1 lane x K {k} x N {F.shape[1]} ({nv:.0f} valid rows), fp32 H and F",
     )
     # The launch alone, without the wrapper's Python (checks, the counts'
@@ -2134,7 +2168,7 @@ def row_sums_case(dev, cap: int) -> dict:
         ms=cuda_ms(lambda: rowsum.row_sums(x), 20),
         plain_ms=cuda_ms(lambda: rowsum.row_sums_plain(x), 3),
         library_ms=cuda_ms(lambda: torch.sum(x, dim=-1), 20),
-        bound=bound_ms(4 * x.numel() + 4 * LANES * 27, (float(x.numel()), PEAK_FP32_OPS)),
+        bound=bound_ms(4 * x.numel() + 4 * LANES * 27, (float(x.numel()), "fp32")),
         shape=f"{LANES} lanes x 27 rows x {cap} (the ICP's normal equations)",
     )
 
@@ -2467,32 +2501,11 @@ def sharded_ransac_path(dev, cfg, sp, tp, T_true, mu, M2) -> dict:
 
 
 def multiway_views(n_clouds: int, n_points: int):
-    """JAX's run_multiway_benchmark data (tpu3dm/apps/benchmark.py:384-476):
-    view k is dental_arch_cloud(n_points, seed=0) under rand_T(k) (view 0
-    under the identity) plus sigma 0.01 noise, one generator seeded 0 across
-    the views.  Returns (views, trues [n, 4, 4])."""
-    from tpu3dm_torch.io.synthetic import dental_arch_cloud
+    """JAX's run_multiway_benchmark data, as the port's benchmark builds it
+    (tpu3dm_torch/apps/benchmark.py: multiway_views): (views, trues [n, 4, 4])."""
+    from tpu3dm_torch.apps.benchmark import multiway_views as views
 
-    rng = np.random.default_rng(0)
-    base = dental_arch_cloud(n_points, seed=0)
-    center = base.mean(axis=0)
-
-    def rand_T(k):
-        r = np.random.default_rng(1000 + k)
-        a, b, c = r.uniform(-np.pi / 6, np.pi / 6, size=3)
-        rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
-        ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
-        rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
-        R = rz @ ry @ rx
-        T = np.eye(4)
-        T[:3, :3] = R
-        T[:3, 3] = -R @ center + center + r.uniform(-0.5, 0.5, size=3)
-        return T
-
-    trues = np.stack([np.eye(4)] + [rand_T(k) for k in range(1, n_clouds)])
-    views = [(base @ T[:3, :3].T + T[:3, 3] + 0.01 * rng.standard_normal(base.shape))
-             .astype(np.float32) for T in trues]
-    return views, trues
+    return views(n_clouds, n_points)
 
 
 def rot_deg(Ta, Tb) -> np.ndarray:
@@ -2938,6 +2951,419 @@ def card_tests() -> None:
     log(f"card tests ({CARD_TESTS}): {lines[-1] if lines else ''} in {time.time() - t0:.1f} s")
 
 
+def app_paths(dev, cfg) -> dict:
+    """Phase X, the application layer, in this process.
+
+    Every subcommand of ``tpu3dm_torch.apps.cli.main`` once on the card,
+    outputs in a temporary directory: info --probe, register on a written
+    20k arch pair, register --large at 1,048,576 points, convert and trim,
+    trace (--out-html, --out-anim), register-batch on a 16-pair manifest
+    whole and at --window 8, multiway on 4 written views, serve (two
+    requests through a client, then closed), crashtest, kernels (the full
+    case list), bench (the phase benchmark).  Then the runners without a
+    CLI flag for their depth, at JAX's widths: serve, stream, overlap,
+    sweep, fpfh A/B, multiway, scaling (on the cards there are), the large
+    cloud, the scaling model on the kernel report just written.  Each call
+    runs with the launch counts zeroed before and read after, and logs its
+    seconds, its gate and the kernels it launched.  Checks: every kernel
+    case at most 105% of its bound; kernels 4 and 5 on the kernel bench's
+    inputs (16384^2 d 3, 8192^2 d 33) and kernel 3's one-lane score (4096 x
+    8192) against their plain versions; the census's pair mesh calls no
+    shift or psum; traced_ransac on the card and on the CPU, from the same
+    bits, give the same trace.  Returns {"X": the launches of every counted
+    call, summed}."""
+    import contextlib
+    import io
+    import struct
+    import tempfile
+    import threading
+
+    import torch
+
+    from tpu3dm_torch.apps import benchmark as bm
+    from tpu3dm_torch.apps import cli
+    from tpu3dm_torch.apps import kernelbench as kb
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
+    from tpu3dm_torch.io.ply import read_ply, write_ply
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.ops import nn as tnn
+    from tpu3dm_torch.ops import ransac_score
+    from tpu3dm_torch.registration.stream import make_stream_manifest
+    from tpu3dm_torch.serve import RegistrationServer
+    from tpu3dm_torch.serve.client import RegistrationClient
+
+    total: dict[str, int] = {}
+    t_phase = time.time()
+
+    def launched(counts):
+        return {k: n for k, n in counts.items() if n}
+
+    def run(label, fn, *, need=()):
+        """fn() with the counts zeroed before and read after; its captured
+        standard output and its result."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v.launches for k, v in KERNELS.items()}
+        for k in need:
+            if counts[k] == 0:
+                fail(f"phase X {label}: {k} was never launched")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        return res, buf.getvalue(), wall, launched(counts)
+
+    def gate(label, T, T_true, points, rmse_max):
+        T, T_true = np.asarray(T, np.float64), np.asarray(T_true, np.float64)
+        mu, M2 = points.mean(0), points.T @ points / points.shape[0]
+        rot, rmse = fused_gate(torch.as_tensor(T)[None], T_true[None], mu[None], M2[None])
+        if rot[0] >= 2.0 or rmse[0] >= rmse_max:
+            fail(f"phase X {label}: rot {rot[0]:.4f} deg, rmse {rmse[0]:.5f} (gate 2 deg, "
+                 f"{rmse_max})")
+        return f"rot {rot[0]:.4f} deg, rmse {rmse[0]:.5f}"
+
+    def cli_call(label, argv, need=()):
+        rc, out, wall, kern = run(label, lambda: cli.main([*argv, "--device", dev.type]),
+                                  need=need)
+        if rc != 0:
+            fail(f"phase X {label}: exit code {rc}")
+        return out, wall, kern
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sp, tp, T_true = make_benchmark_pair(APP_POINTS, seed=0, sigma=0.01)
+        write_ply(tmp / "src.ply", sp.astype(np.float32))
+        write_ply(tmp / "tgt.ply", tp.astype(np.float32))
+        src, tgt = str(tmp / "src.ply"), str(tmp / "tgt.ply")
+        sp64 = read_ply(src)["points"].astype(np.float64)
+
+        out, wall, kern = cli_call("info", ["info", "--probe"])
+        info = json.loads(out)
+        log(f"phase X cli info --probe: {wall:.2f} s; devices {info['devices']}, host tier "
+            f"{info['host_tier']}, host voxel hash of 100k points {info['host_voxel_100k_ms']} "
+            f"ms, first launch {info['first_dispatch_s']} s, tf32 "
+            f"{info['matmul_allow_tf32']}/{info['cudnn_allow_tf32']}; kernels {kern}")
+
+        out, wall, kern = cli_call(
+            "register", ["register", src, tgt, "--out-ply", str(tmp / "reg.ply"),
+                         "--out-html", str(tmp / "reg.html")],
+            need=("ransac_score", "nn_tiled_smalld"))
+        reg = json.loads(out)
+        note = gate("register", reg["transformation"], T_true, sp64, 0.1)
+        log(f"phase X cli register ({APP_POINTS} + {APP_POINTS} points): {wall:.2f} s; {note}; "
+            f"ICP fitness {reg['icp']['fitness']:.4f}; kernels {kern}")
+
+        lp, lq, L_true = make_benchmark_pair(APP_LARGE_POINTS, seed=0, sigma=0.002)
+        write_ply(tmp / "lsrc.ply", lp.astype(np.float32))
+        write_ply(tmp / "ltgt.ply", lq.astype(np.float32))
+        out, wall, kern = cli_call(
+            "register --large", ["register", str(tmp / "lsrc.ply"), str(tmp / "ltgt.ply"),
+                                 "--large"],
+            need=("ransac_score", "nn_tiled_smalld", "nn_blocksparse"))
+        reg = json.loads(out)
+        if reg.get("path") != "large":
+            fail("phase X register --large did not take the large path")
+        note = gate("register --large", reg["transformation"], L_true,
+                    lp.astype(np.float32).astype(np.float64), APP_GATE_RMSE_LARGE)
+        log(f"phase X cli register --large ({APP_LARGE_POINTS} + {APP_LARGE_POINTS} points): "
+            f"{wall:.2f} s (PLY reads included); {note}; ICP {reg['icp']['iterations']} "
+            f"iterations; kernels {kern}")
+        del lp, lq
+
+        # convert: an STL of the source's first 3000 points as triangles.
+        tris = sp[:3000].astype("<f4").reshape(-1, 3, 3)
+        with open(tmp / "m.stl", "wb") as f:
+            f.write(b"\0" * 80 + struct.pack("<I", len(tris)))
+            for tri in tris:
+                f.write(np.zeros(3, "<f4").tobytes() + tri.tobytes() + struct.pack("<H", 0))
+        _, wall, kern = cli_call("convert", ["convert", str(tmp / "m.stl"),
+                                             str(tmp / "m.ply")])
+        n_conv = read_ply(tmp / "m.ply")["points"].shape[0]
+        _, wall2, _ = cli_call("trim", ["trim", src, str(tmp / "half.ply"), "--fraction", "0.5"])
+        n_trim = read_ply(tmp / "half.ply")["points"].shape[0]
+        if not (0 < n_conv <= 3000 and 0 < n_trim < APP_POINTS):
+            fail(f"phase X convert / trim: {n_conv} and {n_trim} points")
+        log(f"phase X cli convert ({len(tris)} triangles -> {n_conv} points) {wall:.2f} s, trim "
+            f"(--fraction 0.5 -> {n_trim} points) {wall2:.2f} s; kernels {kern}")
+
+        out_t = tmp / "trace.jsonl"
+        _, wall, kern = cli_call("trace", ["trace", src, tgt, "--out", str(out_t),
+                                           "--out-html", str(tmp / "t.html"),
+                                           "--out-anim", str(tmp / "anim.html")])
+        rows = [json.loads(line) for line in out_t.read_text().splitlines()]
+        bests = [r["best_fitness"] for r in rows]
+        if not rows or any(b2 < b1 for b1, b2 in zip(bests, bests[1:])) or \
+                (tmp / "anim.html").read_text().count('"T"') != len(rows):
+            fail(f"phase X trace: {len(rows)} rows, best fitness not monotone or frames missing")
+        rot_t = float(rot_deg(np.asarray(rows[-1]["best_T"]), T_true))
+        log(f"phase X cli trace (noise ratio 2.0, 256 a chunk): {wall:.2f} s; {len(rows)} rows, "
+            f"best fitness {bests[-1]:.4f}, the best 3-point pose {rot_t:.3f} deg from the "
+            f"truth (no refit, no gate); kernels {kern}")
+
+        pair_paths, trues, moments = make_stream_manifest(tmp / "batch", APP_BATCH_PAIRS,
+                                                          n_points=APP_POINTS, sigma=0.01)
+        (tmp / "manifest.txt").write_text("".join(f"{a} {b}\n" for a, b in pair_paths))
+        batch_kernels = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+        results = {}
+        for mode, extra in (("whole", []), (f"--window {APP_BATCH_WINDOW}",
+                                            ["--window", str(APP_BATCH_WINDOW)])):
+            _, wall, kern = cli_call(f"register-batch {mode}",
+                                     ["register-batch", str(tmp / "manifest.txt"), "--out",
+                                      str(tmp / "batch.json"), *extra], need=batch_kernels)
+            res = json.loads((tmp / "batch.json").read_text())
+            T = torch.as_tensor(np.stack([r["transformation"] for r in res]))
+            worst = gate_lanes(f"phase X register-batch {mode}", T, np.stack(trues),
+                               np.stack([m[0] for m in moments]),
+                               np.stack([m[1] for m in moments]))
+            results[mode] = T
+            log(f"phase X cli register-batch {mode} ({APP_BATCH_PAIRS} pairs): {wall:.2f} s; "
+                f"{worst}; kernels {kern}")
+        gap = apart(*results.values())
+        log(f"phase X register-batch whole against windowed: rot {gap[0]:.4g} deg, t "
+            f"{gap[1]:.3g} (each window pads its clouds to its own capacity)")
+
+        views, mw_trues = multiway_views(APP_MULTIWAY_VIEWS, APP_POINTS)
+        files = []
+        for k, v in enumerate(views):
+            write_ply(tmp / f"view{k}.ply", v)
+            files.append(str(tmp / f"view{k}.ply"))
+        _, wall, kern = cli_call("multiway", ["multiway", *files, "--out",
+                                              str(tmp / "poses.json")],
+                                 need=("ransac_score", "nn_tiled_smalld"))
+        poses = np.asarray(json.loads((tmp / "poses.json").read_text())["poses"])
+        pose_err = rot_deg(poses, np.linalg.inv(mw_trues))
+        if pose_err.max() >= 2.0:
+            fail(f"phase X multiway: worst pose {pose_err.max():.3f} deg (gate 2 deg)")
+        log(f"phase X cli multiway ({APP_MULTIWAY_VIEWS} views of {APP_POINTS} points, "
+            f"sequential): {wall:.2f} s; worst pose {pose_err.max():.4f} deg; kernels {kern}")
+
+        # serve: serve_forever in a thread; two requests through a client, then close.
+        servers, real = [], RegistrationServer.serve_forever
+
+        def capture(self):
+            servers.append(self)
+            real(self)
+
+        RegistrationServer.serve_forever = capture
+        try:
+            def serve_session():
+                th = threading.Thread(
+                    target=cli.main, args=(["serve", "--port", "0", "--prewarm",
+                                            "--device", dev.type],), daemon=True)
+                th.start()
+                t_end = time.time() + 300
+                while not servers and time.time() < t_end and th.is_alive():
+                    time.sleep(0.05)
+                if not servers:
+                    fail("phase X serve: the server never started")
+                server = servers[0]
+                try:
+                    with RegistrationClient(server.host, server.port) as client:
+                        replies = [client.register(src, tgt), client.register(sp, tp)]
+                finally:
+                    server.close()
+                th.join(60)
+                return replies
+
+            replies, _, wall, kern = run("serve", serve_session,
+                                         need=("lane_mutual", "ransac_score_bf16"))
+        finally:
+            RegistrationServer.serve_forever = real
+        notes = [gate(f"serve reply {i}", r["transformation"], T_true, sp64, 0.1)
+                 for i, r in enumerate(replies)]
+        log(f"phase X cli serve (port 0, --prewarm, a path request and an inline request, "
+            f"then closed): {wall:.2f} s; {'; '.join(notes)}; kernels {kern}")
+
+        _, wall, kern = cli_call("crashtest", ["crashtest"], need=("ransac_score",))
+        log(f"phase X cli crashtest: {wall:.2f} s, exit 0; kernels {kern}")
+
+        roof_path = tmp / "kernel_roofline.json"
+        out, wall, kern = cli_call("kernels", ["kernels", "--out", str(roof_path)],
+                                   need=("nn_tiled_smalld", "nn_tiled_wide", "ransac_score"))
+        roof = json.loads(roof_path.read_text())
+        log(f"phase X cli kernels: {wall:.2f} s; model {roof['hardware_model']['name']}, "
+            f"dispatch floor {roof['dispatch_floor_ms']} ms; kernels {kern}")
+        for line in out.strip().splitlines():
+            log(f"  {line}")
+        over = [c["name"] for c in roof["cases"] if c["pct_of_sol"] > 105.0]
+        if over:
+            fail(f"phase X kernels: {over} above 105% of their bound (a count is wrong)")
+
+        _, wall, kern = cli_call("bench", ["bench", "--test-iterations", str(APP_BENCH_ITERATIONS),
+                                           "--out-txt", str(tmp / "b.txt"),
+                                           "--out-json", str(tmp / "b.json")])
+        bench = json.loads((tmp / "b.json").read_text())
+        if not bench["quality"]["ransac_fitness"] > 0.2:
+            fail(f"phase X bench: RANSAC fitness {bench['quality']['ransac_fitness']:.4f}")
+        d = bench["derived"]
+        log(f"phase X cli bench (--test-iterations {APP_BENCH_ITERATIONS}): {wall:.2f} s; "
+            f"RANSAC fitness {bench['quality']['ransac_fitness']:.4f}; per hypothesis "
+            f"{d['per_hypothesis_ms']:.3g} ms, {d['hypotheses_per_sec']:.4g} hypotheses/s; "
+            f"preprocess warm {d['preprocess_warm_ms_2clouds'] * 1e3:.1f} ms, batched "
+            f"{d['preprocess_batched_ms_2clouds'] * 1e3:.1f} ms (2 clouds); kernels {kern}")
+
+        # --- the runners at JAX's widths ---------------------------------------
+        def runner(label, fn, check, need=()):
+            rep, _, wall, kern = run(label, fn, need=need)
+            note = check(rep)
+            log(f"phase X {label}: {wall:.2f} s; {note}; kernels {kern}")
+            return rep
+
+        def ok(cond, label, note):
+            if not cond:
+                fail(f"phase X {label}: {note}")
+            return note
+
+        j = str(tmp / "r.json")
+        runner("run_serve_benchmark(128, offered_duration_s=2)",
+               lambda: bm.run_serve_benchmark(128, offered_duration_s=2, out_json=j, device=dev),
+               lambda r: ok(r["quality_ok"], "serve", (
+                   f"{r['requests_per_sec']} req/s, mean batch {r['mean_batch_size']}, rot max "
+                   f"{r['rot_err_deg_max']} deg, first request {r['first_request_after_prewarm_ms']}"
+                   f" ms, offered p50 " + ", ".join(
+                       f"{row['offered_req_per_sec']}/s {row['latency_ms'].get('p50')} ms"
+                       for row in r["offered_load"]))),
+               need=("lane_mutual", "ransac_score_bf16"))
+        runner("run_stream_benchmark(128)", lambda: bm.run_stream_benchmark(128, out_json=j, device=dev),
+               lambda r: ok(r["quality_ok"], "stream", (
+                   f"{r['fresh_pairs_per_sec']} fresh pairs/s steady, device only "
+                   f"{r['device_only_pairs_per_sec']}, {r['retry_pairs']} retried, worst pair "
+                   f"{r['rot_err_deg_worst_pair']:.3f} deg, {r['pairs_over_2deg']} over 2 deg")),
+               need=("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums"))
+
+        def overlap_note(r):
+            rates = {fam: [(row["overlap"], row["plain"]["success_rate_2deg"],
+                            row["rescue"]["success_rate_2deg"]) for row in rows]
+                     for fam, rows in r["families"].items()}
+            full = r["families"]["arch"][0]
+            return ok(full["overlap"] == 1.0 and full["plain"]["success_rate_2deg"] == 1.0
+                      and full["rescue"]["success_rate_2deg"] == 1.0, "overlap",
+                      f"(overlap, plain, rescue) within 2 deg: {rates}")
+
+        runner("run_overlap_benchmark(seeds=8, overlaps=(1.0, 0.5))",
+               lambda: bm.run_overlap_benchmark((1.0, 0.5), seeds=8, out_json=j, device=dev), overlap_note,
+               need=("lane_mutual", "ransac_score_bf16"))
+        runner("run_hypothesis_sweep(counts 4096, 65536)",
+               lambda: bm.run_hypothesis_sweep(None, None, hypothesis_counts=(4096, 65536),
+                                               out_json=j, device=dev),
+               lambda r: ok(all(g["fitness"] > 0.2 for g in r["grid"]), "sweep", ", ".join(
+                   f"K {g['hypotheses']} thr {g['dist_thresh']:.3g}: {g['time_s'] * 1e3:.1f} ms, "
+                   f"fitness {g['fitness']:.3f}" for g in r["grid"])),
+               need=("ransac_score",))
+        runner("run_fpfh_ab_benchmark(seeds=(0,))",
+               lambda: bm.run_fpfh_ab_benchmark(seeds=(0,), out_json=j, device=dev),
+               lambda r: ok(all(row["rot_err_deg"] < 2.0 for rows in r["results"].values()
+                                for row in rows), "fpfh A/B",
+                            f"rot err {[(k, v[0]['rot_err_deg']) for k, v in r['results'].items()]}"
+                            f" deg, preprocess "
+                            f"{[(k, v[0]['preprocess_s']) for k, v in r['results'].items()]} s"),
+               need=("ransac_score", "nn_tiled_smalld"))
+        runner("run_multiway_benchmark(16)", lambda: bm.run_multiway_benchmark(16, out_json=j, device=dev),
+               lambda r: ok(r["rot_err_deg_max"] < 2.0, "multiway",
+                            f"warm {r['warm_s']:.3f} s, {r['edges_per_sec']:.1f} edges/s, rot max "
+                            f"{r['rot_err_deg_max']:.4f} deg"),
+               need=("lane_mutual", "ransac_score_bf16"))
+        sizes = tuple(n for n in (1, 2, 4, 8) if n <= max(1, torch.cuda.device_count()))
+        runner(f"run_scaling_benchmark({sizes})",
+               lambda: bm.run_scaling_benchmark(sizes, out_json=j, device=dev),
+               lambda r: ok(all(row["min_fitness"] > 0.2 for row in r["rows"]), "scaling",
+                            ", ".join(f"mesh {row['mesh']}: {row['pairs_per_sec']:.1f} pairs/s, "
+                                      f"efficiency {row['efficiency']:.3f}" for row in r["rows"])),
+               need=("lane_mutual", "ransac_score"))
+        runner("run_large_cloud_benchmark()", lambda: bm.run_large_cloud_benchmark(out_json=j, device=dev),
+               lambda r: ok(r["quality"]["align_rmse"] < APP_GATE_RMSE_LARGE, "large",
+                            f"NN {r['nn_search_s'] * 1e3:.2f} ms, ICP {r['icp_ms_per_iter']:.2f} "
+                            f"ms/iteration, full {r['full_register_s']:.3f} s, rmse "
+                            f"{r['quality']['align_rmse']:.3g}"),
+               need=("nn_blocksparse", "ransac_score"))
+
+        def census_note(r):
+            pair = r["collective_census"]["pair_dp_batched_register"]
+            icp = r["collective_census"]["sharded_icp"]
+            return ok(pair["shift"] == 0 and pair["psum"] == 0 and icp["shift"] > 0, "census",
+                      f"pair mesh {pair}, sharded ICP {icp}; model efficiency "
+                      + ", ".join(f"{row['mesh']}: {row['efficiency_model']}"
+                                  for row in r["rows"])
+                      + f" at {r['nn_rate_entries_per_s_measured']:.4g} entries/s")
+
+        runner("run_scaling_model (this phase's kernel report)",
+               lambda: bm.run_scaling_model(roofline_json=str(roof_path), out_json=j, device=dev),
+               census_note)
+    log(f"phase X cuts (repetitions only; widths as JAX's): {APP_CUTS}")
+
+    # --- the kernels at the kernel bench's inputs against their plain versions
+    rng = np.random.default_rng(0)
+    for nq, d, exact in ((16384, 3, True), (8192, 33, False)):
+        q, t = kb.nn_inputs(nq, nq, d, rng, dev)
+        d2k, ik = tnn.nn_search_tiled(q, t)
+        d2p, ip = tnn.nn_search_tiled_plain(q, t)
+        agree = (ik == ip).float().mean().item()
+        err = (d2k - d2p).abs().max().item()
+        scale = (torch.sum(q * q, -1).max() + torch.sum(t * t, -1).max()).item()
+        if (exact and (agree < 1.0 or err > 0.0)) or agree < 0.999 or err > 2e-6 * scale:
+            fail(f"phase X kernel bench inputs {nq}^2 d {d}: picks equal {agree:.6f}, max |d2| "
+                 f"error {err:.3g}")
+        log(f"phase X kernel {'4' if d == 3 else '5'} on the kernel bench's {nq}^2 d {d} inputs "
+            f"against its plain version: picks equal {agree:.6f}, max |d2| error {err:.3g}")
+    R, tt, p, qq, m = kb.score_inputs(4096, 8192, rng, dev)
+    ops = kb.score_lane_operands(R, tt, p, qq, m)
+    ck = ransac_score.score_features(*ops, kb.SCORE_THRESH_SQ)
+    cp = ransac_score.score_features_plain(*ops, kb.SCORE_THRESH_SQ)
+    sure, near = ransac_score.score_count_bracket(*ops, kb.SCORE_THRESH_SQ,
+                                                  ransac_score.FP32_CHAIN_REL)
+    diff = (ck - cp).abs()
+    exact = (diff == 0).float().mean().item()
+    outside = int(((ck < sure) | (ck > sure + near)).sum())
+    if outside or exact < 0.999 or diff.max().item() > 1:
+        fail(f"phase X kernel 3 one lane 4096 x 8192: {exact:.6f} equal, {outside} outside the "
+             f"float64 bracket")
+    log(f"phase X kernel 3 (fp32, one lane) on the kernel bench's 4096 x 8192 inputs against its "
+        f"plain version: counts equal {exact:.6f}, max difference {int(diff.max())}, "
+        f"{outside} outside the float64 bracket")
+
+    # --- traced_ransac on the card and on the CPU from the same bits ---------
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points
+    from tpu3dm_torch.registration.correspondence import correspondence_noise_draws
+    from tpu3dm_torch.parallel.multipair import draw_bits
+    from tpu3dm_torch.viz.trace import traced_ransac
+
+    ps = preprocess_points(sp, cfg.preprocess, device=dev).down
+    pt = preprocess_points(tp, cfg.preprocess, device=dev).down
+    gen = torch.Generator().manual_seed(5)
+    bits = draw_bits((APP_TRACE_ITERATIONS // 256, 256, 2), gen)
+    draws = correspondence_noise_draws(ps.capacity, int(ps.mask.sum()), int(pt.mask.sum()), gen)
+    n_valid = int(ps.mask.sum())
+    for noise in (0.0, 2.0):
+        kw = dict(sample_bits=bits, noise_ratio=noise, noise_draws=draws,
+                  max_iterations=APP_TRACE_ITERATIONS)
+        (res_c, rows_c), _, wall, kern = run("traced_ransac", lambda: traced_ransac(
+            ps, pt, cfg.ransac, **kw))
+        cpu = [type(ps)(*(x.cpu() for x in (c.points, c.mask, c.normals, c.features)))
+               for c in (ps, pt)]
+        res_h, rows_h = traced_ransac(*cpu, cfg.ransac, **kw)
+        same = [(a["iteration"], a["early_stop"]) == (b["iteration"], b["early_stop"])
+                for a, b in zip(rows_c, rows_h)]
+        fit_gap = max(abs(a[k] - b[k]) for a, b in zip(rows_c, rows_h)
+                      for k in ("current_fitness", "best_fitness"))
+        pose_gap = max(np.abs(np.asarray(a["best_T"]) - np.asarray(b["best_T"])).max()
+                       for a, b in zip(rows_c, rows_h))
+        equal = sum(a == b for a, b in zip(rows_c, rows_h))
+        if len(rows_c) != len(rows_h) or not all(same) or fit_gap > 1.0 / n_valid + 1e-4 \
+                or pose_gap > 1e-4:
+            fail(f"phase X traced_ransac (noise {noise}) card against CPU: {len(rows_c)} / "
+                 f"{len(rows_h)} rows, fitness gap {fit_gap:.3g}, pose gap {pose_gap:.3g}")
+        log(f"phase X traced_ransac (noise ratio {noise}, {APP_TRACE_ITERATIONS} hypotheses, "
+            f"256 a chunk) card {wall:.2f} s against the CPU from the same bits: {len(rows_c)} "
+            f"rows, {equal} identical, iterations and early stops equal, fitness gap "
+            f"{fit_gap:.3g}, best pose gap {pose_gap:.3g}; kernels {kern}")
+    log(f"phase X: {time.time() - t_phase:.1f} s in all; launches of its counted calls {total}")
+    return {"X": total}
+
+
 def mesh_large_paths(dev, src_pts, tgt_pts, a: dict, fine_a, gate) -> dict:
     """Q3: ``ring_nn_search`` on a 1x4 block mesh on the card, at d = 3 on
     path A's 1,000,448-row clouds (A's source moved by its downsampled-ICP
@@ -3232,9 +3658,9 @@ def large_phases(dev, results: dict) -> dict:
         far = torch.where(tmask[:, None], t, torch.full_like(t, 1e9))
         nq, nt, d = valid_count(qmask), valid_count(tmask), q.shape[1]
         if d < 8:  # fp32 instructions: 3 subtractions, 3 squares, 3 adds (bias first)
-            work = (3.0 * d * nq * nt, PEAK_FP32_OPS)
+            work = (3.0 * d * nq * nt, "fp32")
         else:  # d FMAs, then one FMA of the -2 scale with |t|^2
-            work = ((d + 1.0) * nq * nt, PEAK_FP32_OPS)
+            work = ((d + 1.0) * nq * nt, "fp32")
         r = dict(
             agree=agree, max_abs_err=err,
             ms=cuda_ms(lambda: tnn.nn_search_tiled(q, t, call_qmask, tmask), reps),
@@ -3305,7 +3731,7 @@ def large_phases(dev, results: dict) -> dict:
         plain_ms=cuda_ms(lambda: nn_sparse.nn_search_table_plain(q, tgt.points, table, block=blk), 1),
         library_ms=None,  # no single PyTorch call searches a per-block candidate table
         bound=bound_ms(12 * (vq.sum() + vt.sum()).item() + 4 * table.numel() + 8 * q.shape[0],
-                       (7.0 * entries, PEAK_FP32_OPS)),
+                       (7.0 * entries, "fp32")),
         shape=f"{q.shape[0]} x {tgt.points.shape[0]}, {table.shape[0]} blocks x w {table.shape[1]}",
     )
     log(f"kernel nn_blocksparse (A first full-res ICP search){parent_note('nn_blocksparse')}: "

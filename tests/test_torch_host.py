@@ -104,3 +104,54 @@ def test_host_build_failure_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="host.cpp"):
         csrc.build(["host.cpp"])
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+# ---------------------------------------------------------------------------
+# extract_xyz and cloud_stats (tests/test_native.py:56-80, against NumPy and
+# the JAX native tier)
+# ---------------------------------------------------------------------------
+
+
+def test_extract_xyz_strided_f4():
+    rec = np.zeros(64, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("c", "u1")])
+    rec["x"] = np.arange(64)
+    rec["y"] = np.arange(64) * 2.0
+    rec["z"] = np.arange(64) * 3.0
+    args = (rec.tobytes(), 64, rec.itemsize, [0, 4, 8], [0, 0, 0], False)
+    got = csrc.extract_xyz(*args)
+    np.testing.assert_array_equal(got, np.stack([rec["x"], rec["y"], rec["z"]], 1))
+    assert tpu3dm.native.available()
+    np.testing.assert_array_equal(got, tpu3dm.native.extract_xyz(*args))
+
+
+def test_extract_xyz_f8_bigendian_and_mixed():
+    rec = np.zeros(8, dtype=[("x", ">f8"), ("y", ">f8"), ("z", ">f8")])
+    rec["x"] = np.arange(8) + 0.5
+    rec["y"] = -np.arange(8)
+    rec["z"] = np.arange(8) * 0.125
+    args = (rec.tobytes(), 8, 24, [0, 8, 16], [1, 1, 1], True)
+    got = csrc.extract_xyz(*args)
+    np.testing.assert_array_equal(got, np.stack([rec["x"], rec["y"], rec["z"]], 1))
+    np.testing.assert_array_equal(got, tpu3dm.native.extract_xyz(*args))
+    mixed = np.zeros(5, dtype=[("z", ">f4"), ("pad", "u1"), ("x", ">f8"), ("y", ">f4")])
+    mixed["x"], mixed["y"], mixed["z"] = np.arange(5) / 3.0, 7.25, -np.arange(5)
+    offs = [mixed.dtype.fields[c][1] for c in ("x", "y", "z")]
+    args = (mixed.tobytes(), 5, mixed.itemsize, offs, [1, 0, 0], True)
+    np.testing.assert_array_equal(csrc.extract_xyz(*args),
+                                  np.stack([mixed["x"], mixed["y"], mixed["z"]], 1))
+    np.testing.assert_array_equal(csrc.extract_xyz(*args), tpu3dm.native.extract_xyz(*args))
+    with pytest.raises(ValueError, match="records"):
+        csrc.extract_xyz(mixed.tobytes()[:-1], 5, mixed.itemsize, offs, [1, 0, 0], True)
+
+
+@pytest.mark.parametrize("n", [1, 3000, 100_000])  # 100k: the pass runs on several threads
+def test_cloud_stats_threaded(n):
+    pts = np.random.default_rng(3).normal(size=(n, 3))
+    lo, hi, c = csrc.cloud_stats(pts)
+    np.testing.assert_array_equal(lo, pts.min(axis=0))
+    np.testing.assert_array_equal(hi, pts.max(axis=0))
+    np.testing.assert_allclose(c, pts.mean(axis=0), atol=1e-9)
+    jlo, jhi, jc = tpu3dm.native.cloud_stats(pts)
+    np.testing.assert_array_equal(lo, jlo)
+    np.testing.assert_array_equal(hi, jhi)
+    np.testing.assert_array_equal(c, jc)

@@ -48,6 +48,28 @@ def test_parallel_modules_are_scanned(name):
     assert ROOT / "tpu3dm_torch" / "parallel" / f"{name}.py" in PORT_FILES
 
 
+@pytest.mark.parametrize("name", ["apps/kernelbench.py", "apps/benchmark.py", "apps/cli.py",
+                                  "apps/crashtest.py", "viz/export.py", "viz/trace.py"])
+def test_app_and_viz_modules_are_scanned(name):
+    """Every module of the port's application layer is in the scan above."""
+    assert ROOT / "tpu3dm_torch" / name in PORT_FILES
+
+
+def _counterpart(path: Path) -> Path:
+    """The port's module for a JAX module: the same path under
+    tpu3dm_torch/, with native/ (the host C++ tier) mapped to csrc/."""
+    rel = path.relative_to(ROOT / "tpu3dm")
+    if rel.parts[0] == "native":
+        rel = Path("csrc", *rel.parts[1:])
+    return ROOT / "tpu3dm_torch" / rel
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tpu3dm").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_jax_module_has_a_port(path):
+    assert _counterpart(path).exists(), _counterpart(path)
+
+
 def test_import_needs_no_triton_nvcc_or_gpu():
     """Every module imports in a process where triton cannot be imported and
     neither nvcc nor a host C++ compiler can be found, and importing loads

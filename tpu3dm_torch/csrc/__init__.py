@@ -5,8 +5,8 @@ Each ``*.cu`` file in this directory compiles into one shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``).
 Every C entry point takes raw device pointers, sizes and a CUDA stream,
 launches on that stream, allocates nothing, and returns ``cudaGetLastError()``.
-``host.cpp`` (the ASCII PLY parser, the KD partition and the voxel grid)
-compiles with the host C++ compiler (``$CXX``, else ``c++``) and the JAX
+``host.cpp`` (the ASCII PLY parser, binary PLY vertex extraction, cloud
+statistics, the KD partition and the voxel grid) compiles with the host C++ compiler (``$CXX``, else ``c++``) and the JAX
 package's native-tier flags, so its results equal that tier's.
 
 Libraries are built on first use into ``build/`` beside the sources, under a
@@ -33,6 +33,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SRC_DIR = Path(__file__).resolve().parent
@@ -197,8 +198,45 @@ def host_library() -> ctypes.CDLL:
             lib.t3n_kd_perm.restype = None
             lib.t3n_kd_perm.argtypes = [f64, ctypes.c_long, ctypes.c_long,
                                         ctypes.POINTER(ctypes.c_long)]
+            lib.t3n_extract_xyz.restype = ctypes.c_int
+            lib.t3n_extract_xyz.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long,
+                                            ctypes.POINTER(ctypes.c_long),
+                                            ctypes.POINTER(ctypes.c_int), ctypes.c_int, f64]
+            lib.t3n_cloud_stats.restype = None
+            lib.t3n_cloud_stats.argtypes = [f64, ctypes.c_long, f64, f64, f64]
             _host_lib = lib
         return _host_lib
+
+
+def extract_xyz(buf: bytes, count: int, stride: int, offsets, types, swap: bool):
+    """[count, 3] float64 x, y, z gathered from a binary PLY vertex block of
+    ``count`` records of ``stride`` bytes (``t3n_extract_xyz``): column c
+    starts at byte ``offsets[c]`` of a record and is float32 (``types[c]``
+    0) or float64 (1); ``swap`` byte-swaps each value (a big-endian file on
+    a little-endian host).  JAX's ``tpu3dm/native/__init__.py:135``."""
+    if len(buf) < count * stride:
+        raise ValueError(f"extract_xyz: {len(buf)} bytes hold fewer than {count} records of "
+                         f"{stride}")
+    out = np.empty((count, 3), dtype=np.float64)
+    rc = host_library().t3n_extract_xyz(
+        buf, count, stride, (ctypes.c_long * 3)(*offsets), (ctypes.c_int * 3)(*types),
+        1 if swap else 0, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if rc != 0:
+        raise RuntimeError("t3n_extract_xyz failed")
+    return out
+
+
+def cloud_stats(points):
+    """(lo [3], hi [3], centroid [3]) float64 of an [N, 3] cloud in one
+    threaded pass (``t3n_cloud_stats``; JAX's ``tpu3dm/native/__init__.py:173``)."""
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    if pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError(f"cloud_stats: points must be [N, 3], got {pts.shape}")
+    lo, hi, c = np.empty(3), np.empty(3), np.empty(3)
+    f64 = ctypes.POINTER(ctypes.c_double)
+    host_library().t3n_cloud_stats(pts.ctypes.data_as(f64), pts.shape[0], lo.ctypes.data_as(f64),
+                                   hi.ctypes.data_as(f64), c.ctypes.data_as(f64))
+    return lo, hi, c
 
 
 # Pair lanes per launch: the kernels put the lane on the grid's y axis.

@@ -1,13 +1,16 @@
-// Host C++ functions of tpu3dm_torch: the ASCII PLY parser and the large-cloud path.
+// Host C++ functions of tpu3dm_torch: the ASCII PLY parser, binary PLY
+// vertex extraction, cloud statistics and the large-cloud path.
 //
 // Copied verbatim from the JAX package's native tier,
 // native/tpu3dm_native.cpp: t3n_parse_floats (lines 32-51),
-// t3n_voxel_downsample (lines 53-139) and t3n_kd_rec / t3n_kd_perm (lines
+// t3n_voxel_downsample (lines 53-139), t3n_extract_xyz (lines 140-179),
+// t3n_cloud_stats (lines 181-225) and t3n_kd_rec / t3n_kd_perm (lines
 // 229-273).  The JAX package calls them whenever its native tier is built
 // (io/ply.py's ASCII reader, preprocess/voxel.py voxel_downsample_host,
-// ops/nn_sparse.py kd_perm); the port keeps its own copy so that it parses
-// the same numbers, groups points into the same KD blocks and computes the
-// same voxel means, without importing the JAX package.
+// ops/nn_sparse.py kd_perm, native/__init__.py extract_xyz and
+// cloud_stats); the port keeps its own copy so that it parses the same
+// numbers, groups points into the same KD blocks and computes the same voxel
+// means and statistics, without importing the JAX package.
 //
 // Built with the host C++ compiler and the native tier's flags
 // (tpu3dm_torch/csrc/__init__.py HOST_FLAGS), loaded with ctypes.
@@ -138,6 +141,94 @@ long t3n_voxel_downsample(const double* pts, long n, double voxel,
         out[3 * o + 2] = sl.sz / k;
     }
     return m;
+}
+
+
+
+// ---------------------------------------------------------------------------
+// Binary PLY vertex extraction
+// ---------------------------------------------------------------------------
+// Strided gather of 3 float columns out of a fixed-stride binary vertex
+// block: handles f4/f8 source types and little/big endian.  Covers the
+// dominant read path (binary_little_endian from scanners) without NumPy
+// structured-dtype overhead.
+//
+// type codes: 0 = float32, 1 = float64.  swap: nonzero = byteswap needed.
+// offs/types are per-column (x,y,z).  Returns 0 on success.
+int t3n_extract_xyz(const uint8_t* buf, long count, long stride,
+                    const long* offs, const int* types, int swap,
+                    double* out) {
+    for (int c = 0; c < 3; ++c) {
+        long off = offs[c];
+        int t = types[c];
+        for (long i = 0; i < count; ++i) {
+            const uint8_t* p = buf + i * stride + off;
+            double v;
+            if (t == 0) {
+                uint32_t u;
+                memcpy(&u, p, 4);
+                if (swap) u = __builtin_bswap32(u);
+                float fv;
+                memcpy(&fv, &u, 4);
+                v = (double)fv;
+            } else {
+                uint64_t u;
+                memcpy(&u, p, 8);
+                if (swap) u = __builtin_bswap64(u);
+                double dv;
+                memcpy(&dv, &u, 8);
+                v = dv;
+            }
+            out[3 * i + c] = v;
+        }
+    }
+    return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Threaded batch min/max + centroid (host-side cloud stats for ingest)
+// ---------------------------------------------------------------------------
+// Used by the data-loading path to compute per-cloud bounds without a NumPy
+// pass per cloud; one call, all threads.
+void t3n_cloud_stats(const double* pts, long n, double* lo, double* hi,
+                     double* centroid) {
+    if (n <= 0) return;
+    unsigned nt = std::thread::hardware_concurrency();
+    if (nt == 0) nt = 1;
+    if ((long)nt > n / 4096 + 1) nt = (unsigned)(n / 4096 + 1);
+    std::vector<std::array<double, 9>> parts(nt);
+    std::vector<std::thread> threads;
+    long per = (n + nt - 1) / nt;
+    for (unsigned t = 0; t < nt; ++t) {
+        threads.emplace_back([&, t]() {
+            long a = (long)t * per, b = a + per < n ? a + per : n;
+            double l[3] = {1e300, 1e300, 1e300};
+            double h[3] = {-1e300, -1e300, -1e300};
+            double s[3] = {0, 0, 0};
+            for (long i = a; i < b; ++i)
+                for (int d = 0; d < 3; ++d) {
+                    double v = pts[3 * i + d];
+                    if (v < l[d]) l[d] = v;
+                    if (v > h[d]) h[d] = v;
+                    s[d] += v;
+                }
+            parts[t] = {l[0], l[1], l[2], h[0], h[1], h[2], s[0], s[1], s[2]};
+        });
+    }
+    for (auto& th : threads) th.join();
+    double l[3] = {1e300, 1e300, 1e300}, h[3] = {-1e300, -1e300, -1e300},
+           s[3] = {0, 0, 0};
+    for (auto& p : parts)
+        for (int d = 0; d < 3; ++d) {
+            if (p[d] < l[d]) l[d] = p[d];
+            if (p[3 + d] > h[d]) h[d] = p[3 + d];
+            s[d] += p[6 + d];
+        }
+    for (int d = 0; d < 3; ++d) {
+        lo[d] = l[d];
+        hi[d] = h[d];
+        centroid[d] = s[d] / (double)n;
+    }
 }
 
 }  // extern "C"

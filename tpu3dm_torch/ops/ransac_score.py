@@ -11,7 +11,9 @@ it launches csrc/ransac_score.cu (replacing the TPU's ``_score_kernel``),
 which never builds the [B, K, N] distance tensor (34 GB in fp32 at B=2048,
 K=4096, N=1024).  Each feature dtype has its own kernel: bf16 H and F (the
 ``approx_score`` route) a tensor-core product, fp32 H and F the scalar
-fp32 kernel.
+fp32 kernel.  ``score_hypotheses`` is JAX's size-adaptive scorer over
+unbatched R, t, p, q: the dense [K, N] matrix up to DENSE_MAX_ENTRIES
+entries, one lane of ``score_features`` (fp32) above.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from tpu3dm_torch.ops.nn import lane_slices
 from tpu3dm_torch.ops.rowsum import chain_sum
 
 FEAT_DIM = 16  # 15 used + 1 zero pad
+# Up to this many hypothesis x correspondence entries ``score_hypotheses``
+# materializes the [K, N] matrix (16M entries = 64 MB fp32), as JAX does.
+DENSE_MAX_ENTRIES = 1 << 24
 SCORE_ARGS = [PTR, PTR, PTR, PTR, PTR, FLOAT, PTR, INT, INT, INT]
 RANSAC_SCORE = Kernel("ransac_score", "ransac_score.cu", "t3t_ransac_score", SCORE_ARGS)
 RANSAC_SCORE_BF16 = Kernel(
@@ -156,3 +161,17 @@ def score_hypotheses_dense(R, t, p, q, mask, dist_thresh_sq: float) -> torch.Ten
     d2 = H @ F.transpose(-1, -2) + c[..., None, :] + e[..., :, None]
     hits = (d2 < dist_thresh_sq) & mask[..., None, :]
     return torch.sum(hits, dim=-1, dtype=torch.int32)
+
+
+def score_hypotheses(R, t, p, q, mask, dist_thresh_sq: float) -> torch.Tensor:
+    """Size-adaptive inlier counts [K] int32 of K hypotheses (R [K, 3, 3], t
+    [K, 3]) over one correspondence set (p, q [N, 3], mask [N]), JAX's
+    ``score_hypotheses``: dense up to DENSE_MAX_ENTRIES entries, above it one
+    lane of ``score_features`` on fp32 features (kernel 3's fp32 route on
+    CUDA, its plain version on the CPU)."""
+    if R.shape[0] * p.shape[0] <= DENSE_MAX_ENTRIES:
+        return score_hypotheses_dense(R, t, p, q, mask, dist_thresh_sq)
+    F, c = corres_features(p, q)
+    H, e = hypothesis_features(R, t)
+    return score_features(H[None].contiguous(), e[None].contiguous(), F[None].contiguous(),
+                          c[None].contiguous(), mask[None].contiguous(), dist_thresh_sq)[0]

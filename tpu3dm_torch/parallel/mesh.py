@@ -166,8 +166,12 @@ class Line:
 
     A shard list has one entry per position: the shard's tensor where this
     process owns the position, None elsewhere.  Every process of the mesh
-    calls the collectives in the same order.
+    calls the collectives in the same order.  ``calls`` counts the calls of
+    each of JAX's collectives (``shift``, ``psum``, ``all_gather``) over
+    every line: the census of apps/benchmark.py's scaling model reads it.
     """
+
+    calls = {"shift": 0, "psum": 0, "all_gather": 0}
 
     def __init__(self, mesh: Mesh, devices: list, ranks: list[int]) -> None:
         self.mesh = mesh
@@ -204,6 +208,7 @@ class Line:
     def shift(self, shards: list) -> list:
         """The ring shift (JAX's ``ppermute`` by +1): position i + 1 (mod n)
         receives position i's shard, on its own device."""
+        Line.calls["shift"] += 1
         out: list = [None] * self.n
         mine = set(self.local())
         ops, recvs = [], []
@@ -260,6 +265,7 @@ class Line:
     def psum(self, shards: list) -> torch.Tensor:
         """JAX's ``psum``: the shards added in position order on the home
         device (one rounding order for any device layout)."""
+        Line.calls["psum"] += 1
         parts = self.share(shards)
         total = parts[0]
         for p in parts[1:]:
@@ -269,12 +275,19 @@ class Line:
     def all_gather(self, shards: list) -> torch.Tensor:
         """JAX's ``all_gather``: the shards stacked in position order on the
         home device."""
+        Line.calls["all_gather"] += 1
         return torch.stack(self.share(shards))
 
     def concat(self, shards: list) -> torch.Tensor:
         """The shards joined along axis 0 on the home device (the gathered
         output of a sharded axis)."""
         return torch.cat(self.share(shards))
+
+
+def reset_collective_counts() -> None:
+    """Zero ``Line.calls``."""
+    for k in Line.calls:
+        Line.calls[k] = 0
 
 
 def _comm_device() -> torch.device:

@@ -33,6 +33,7 @@ from tpu3dm_torch.preprocess.normals import (
     normals_from_knn,
 )
 from tpu3dm_torch.preprocess.voxel import voxel_downsample_host
+from tpu3dm_torch.utils.profiler import profile_block
 
 
 @dataclasses.dataclass
@@ -150,25 +151,29 @@ def preprocess_points(
     FPFH and the full cloud's normals on ``device``; with
     ``config.noise_sigma`` > 0, Gaussian noise on the downsampled points
     after the features (``_noise_device``: draws ``noise`` [cap, 3] or from
-    ``generator``), as the reference adds it.
+    ``generator``), as the reference adds it.  The host and device stages
+    are JAX's profiler spans "preprocess/ingest" and
+    "preprocess/features_device".
 
     ``device=None`` means CUDA, and raises when CUDA is absent.
     """
     dev = resolve_device(device)
-    full = from_numpy(points, device=dev)
-    down = voxel_downsample_host(points, config.voxel_size, device=dev)
-    down = down_features(
-        down,
-        config.normal_radius,
-        config.fpfh_radius,
-        normal_max_nn=config.normal_max_nn,
-        fpfh_max_nn=config.fpfh_max_nn,
-        share_knn=config.normal_radius <= config.fpfh_radius,
-    )
+    with profile_block("preprocess/ingest"):
+        full = from_numpy(points, device=dev)
+        down = voxel_downsample_host(points, config.voxel_size, device=dev)
+    with profile_block("preprocess/features_device"):
+        down = down_features(
+            down,
+            config.normal_radius,
+            config.fpfh_radius,
+            normal_max_nn=config.normal_max_nn,
+            fpfh_max_nn=config.fpfh_max_nn,
+            share_knn=config.normal_radius <= config.fpfh_radius,
+        )
+        full = _full_normals(full, config)
     if config.noise_sigma > 0.0:
         down = _noise_device(down, config.noise_sigma, noise, generator)
-    return ProcessedCloud(full=_full_normals(full, config), down=down,
-                          voxel_size=config.voxel_size)
+    return ProcessedCloud(full=full, down=down, voxel_size=config.voxel_size)
 
 
 def preprocess_points_batch(

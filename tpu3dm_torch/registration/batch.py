@@ -360,8 +360,11 @@ def launch_pairs_batched(
 
     # --- valid rows, capacities, buckets, bits --------------------------------
     tights = _Tights(dev)
-    caps = [round_up(max(tights.n_valid(s), tights.n_valid(t), 1), bucket_multiple)
-            for s, t in pairs]
+    # A restored pair may come without clouds (None): it takes the smallest
+    # bucket, which only shapes the bits it draws and never runs.
+    caps = [round_up(1, bucket_multiple) if i in done and s is None and t is None
+            else round_up(max(tights.n_valid(s), tights.n_valid(t), 1), bucket_multiple)
+            for i, (s, t) in enumerate(pairs)]
     bits = _PairBits(n_pairs, caps, knobs, pair_bits, pair_extra_bits, generator)
     buckets: dict[int, list[int]] = {}
     for i, cap in enumerate(caps):
