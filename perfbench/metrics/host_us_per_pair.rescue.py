@@ -1,0 +1,10 @@
+"""Host microseconds a pair in the fused step's rescue verification and
+election (``fused.rescue``): the self time of the traced window's
+``fused.rescue`` spans over the pairs its calls registered
+(``batch.pairs``), from the program's own records (``lib/spans.py``)."""
+
+from perfbench.lib import spans
+
+
+def read(run):
+    return spans.host_us_per_pair("fused.rescue")

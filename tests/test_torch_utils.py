@@ -24,7 +24,12 @@ from tpu3dm_torch.utils.profiler import (
 
 def setup_function(_fn):
     Profiler.reset()
+    Profiler.enable()
     Profiler.enable_memory_tracking(False)
+
+
+def teardown_function(_fn):
+    Profiler.enable(False)
 
 
 def test_span_records_stats():

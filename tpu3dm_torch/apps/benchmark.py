@@ -121,6 +121,7 @@ def run_comprehensive_benchmark(
     device=None,
 ) -> dict:
     Profiler.reset()
+    Profiler.enable()
     dev = resolve_device(device)
     cfg = PipelineConfig.with_voxel_size(voxel_size)
 

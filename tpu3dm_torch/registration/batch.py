@@ -34,6 +34,15 @@ multiple of the mesh's pair axis with repeats of its first pair and that
 pair's bits (JAX's quantum pad), split over the mesh, and the padded lanes
 dropped; a pair's result is the same bits as without the mesh.
 
+Spans (``utils/profiler.py``, recorded only while recording is on):
+``batch.launch`` around a launch, with a new call id; ``batch.pack``
+around the packing before the first step and around each bucket's
+packing; ``batch.resolve`` around ``PendingBatch.resolve``, with its
+launch's call id.  Counters a bucket: ``batch.pairs`` (the pairs it
+registers), ``batch.rows_valid`` and ``batch.rows_padded`` (each pair's
+valid source and target rows up to the bucket's capacity, and twice the
+capacity).
+
 One deliberate departure from JAX: no power-of-two padding of a bucket's
 pair axis.  JAX pads it so that repeated calls reuse a few compiled
 programs; eager PyTorch compiles nothing, so a bucket runs its pairs and
@@ -57,6 +66,7 @@ from tpu3dm_torch.parallel.multipair import chunk_bits_shape, draw_bits, extra_c
 from tpu3dm_torch.parallel.register import batched_register
 from tpu3dm_torch.preprocess.pipeline import ProcessedCloud
 from tpu3dm_torch.registration.fused import fused_register_step
+from tpu3dm_torch.utils.profiler import Profiler, new_call_id, recording
 
 
 @dataclasses.dataclass
@@ -247,7 +257,7 @@ class PendingBatch:
     """
 
     def __init__(self, n: int, launched: list, done: dict, checkpoint=None, pair_names=None,
-                 iterations: int = 0) -> None:
+                 iterations: int = 0, call_id: int = -1) -> None:
         self._n = n
         # launched: (cap, idxs, (T, fitness, rmse) device tensors) per bucket
         self._launched = launched
@@ -255,8 +265,13 @@ class PendingBatch:
         self._checkpoint = checkpoint
         self._pair_names = pair_names
         self._iterations = iterations
+        self._call_id = call_id
 
     def resolve(self) -> BatchResult:
+        with Profiler("batch.resolve", call_id=self._call_id):
+            return self._resolve()
+
+    def _resolve(self) -> BatchResult:
         n = self._n
         out_T = np.zeros((n, 4, 4), np.float32)
         out_fit = np.zeros((n,), np.float32)
@@ -312,6 +327,15 @@ def _stacked(parts: list[tuple], which: tuple[int, ...]) -> list[torch.Tensor]:
     return [torch.stack([p[w] for p in parts]) for w in which]
 
 
+def _count_bucket(cap: int, n_valid: list[tuple[int, int]]) -> None:
+    """The bucket counters for the (source, target) valid-row counts of the
+    pairs a bucket at capacity ``cap`` registers."""
+    if recording():
+        Profiler.count("batch.pairs", len(n_valid))
+        Profiler.count("batch.rows_valid", sum(min(a, cap) + min(b, cap) for a, b in n_valid))
+        Profiler.count("batch.rows_padded", 2 * cap * len(n_valid))
+
+
 def launch_pairs_batched(
     pairs: list[tuple[ProcessedCloud, ProcessedCloud]],
     config: PipelineConfig | None = None,
@@ -336,55 +360,60 @@ def launch_pairs_batched(
 ) -> PendingBatch:
     """Pack and dispatch the buckets of ``register_pairs_batched`` and return
     a ``PendingBatch``; see ``register_pairs_batched`` for the arguments."""
-    if mesh is not None:
-        check_mesh("launch_pairs_batched", mesh)
-    if checkpoint is not None and pair_names is None:
-        raise ValueError("checkpoint requires pair_names")
-    knobs = _Knobs.of(config, rescue_restarts=rescue_restarts, score_subset=score_subset,
-                      rescore_top=rescore_top, adapt_iterations=adapt_iterations,
-                      ransac_iterations=ransac_iterations, icp_iterations=icp_iterations,
-                      icp_solves_per_nn=icp_solves_per_nn, approx_score=approx_score,
-                      sample_mode=sample_mode)
-    dev = resolve_device(device)
-    n_pairs = len(pairs)
-    if n_pairs == 0:
-        return PendingBatch(0, [], {})
+    call_id = new_call_id()
+    with Profiler("batch.launch", call_id=call_id):
+        with Profiler("batch.pack"):
+            if mesh is not None:
+                check_mesh("launch_pairs_batched", mesh)
+            if checkpoint is not None and pair_names is None:
+                raise ValueError("checkpoint requires pair_names")
+            knobs = _Knobs.of(config, rescue_restarts=rescue_restarts, score_subset=score_subset,
+                              rescore_top=rescore_top, adapt_iterations=adapt_iterations,
+                              ransac_iterations=ransac_iterations, icp_iterations=icp_iterations,
+                              icp_solves_per_nn=icp_solves_per_nn, approx_score=approx_score,
+                              sample_mode=sample_mode)
+            dev = resolve_device(device)
+            n_pairs = len(pairs)
+            if n_pairs == 0:
+                return PendingBatch(0, [], {}, call_id=call_id)
 
-    # --- resume: the pairs the checkpoint store already holds ---------------
-    done: dict[int, EdgeRecord] = {}
-    if checkpoint is not None:
-        for i, name in enumerate(pair_names):
-            rec = checkpoint.get_pair(name)
-            if rec is not None:
-                done[i] = rec
+            # --- resume: the pairs the checkpoint store already holds -------
+            done: dict[int, EdgeRecord] = {}
+            if checkpoint is not None:
+                for i, name in enumerate(pair_names):
+                    rec = checkpoint.get_pair(name)
+                    if rec is not None:
+                        done[i] = rec
 
-    # --- valid rows, capacities, buckets, bits --------------------------------
-    tights = _Tights(dev)
-    # A restored pair may come without clouds (None): it takes the smallest
-    # bucket, which only shapes the bits it draws and never runs.
-    caps = [round_up(1, bucket_multiple) if i in done and s is None and t is None
-            else round_up(max(tights.n_valid(s), tights.n_valid(t), 1), bucket_multiple)
-            for i, (s, t) in enumerate(pairs)]
-    bits = _PairBits(n_pairs, caps, knobs, pair_bits, pair_extra_bits, generator)
-    buckets: dict[int, list[int]] = {}
-    for i, cap in enumerate(caps):
-        if i not in done:
-            buckets.setdefault(cap, []).append(i)
+            # --- valid rows, capacities, buckets, bits ------------------------
+            tights = _Tights(dev)
+            # A restored pair may come without clouds (None): it takes the smallest
+            # bucket, which only shapes the bits it draws and never runs.
+            caps = [round_up(1, bucket_multiple) if i in done and s is None and t is None
+                    else round_up(max(tights.n_valid(s), tights.n_valid(t), 1), bucket_multiple)
+                    for i, (s, t) in enumerate(pairs)]
+            bits = _PairBits(n_pairs, caps, knobs, pair_bits, pair_extra_bits, generator)
+            buckets: dict[int, list[int]] = {}
+            for i, cap in enumerate(caps):
+                if i not in done:
+                    buckets.setdefault(cap, []).append(i)
 
-    quantum = mesh.shape[PAIR_AXIS] if mesh is not None else 1
-    launched = []
-    for cap, idxs in sorted(buckets.items()):
-        # The mesh's quantum: repeats of the bucket's first pair (and its
-        # bits), dropped after the step.
-        lanes = idxs + [idxs[0]] * (round_up(len(idxs), quantum) - len(idxs))
-        src = [tights.padded(pairs[i][0], cap) for i in lanes]
-        tgt = [tights.padded(pairs[i][1], cap) for i in lanes]
-        b, extra = bits.of(lanes)
-        out = knobs.step(_stacked(src, (0, 1, 2)), _stacked(tgt, (0, 1, 2, 3)), b, extra, dev,
-                         mesh)
-        launched.append((cap, idxs, tuple(x[:len(idxs)] for x in out)))
-    return PendingBatch(n_pairs, launched, done, checkpoint=checkpoint, pair_names=pair_names,
-                        iterations=ransac_iterations)
+        quantum = mesh.shape[PAIR_AXIS] if mesh is not None else 1
+        launched = []
+        for cap, idxs in sorted(buckets.items()):
+            with Profiler("batch.pack"):
+                # The mesh's quantum: repeats of the bucket's first pair (and
+                # its bits), dropped after the step.
+                lanes = idxs + [idxs[0]] * (round_up(len(idxs), quantum) - len(idxs))
+                src = _stacked([tights.padded(pairs[i][0], cap) for i in lanes], (0, 1, 2))
+                tgt = _stacked([tights.padded(pairs[i][1], cap) for i in lanes], (0, 1, 2, 3))
+                b, extra = bits.of(lanes)
+                _count_bucket(cap, [(tights.n_valid(pairs[i][0]), tights.n_valid(pairs[i][1]))
+                                    for i in idxs])
+            out = knobs.step(src, tgt, b, extra, dev, mesh)
+            launched.append((cap, idxs, tuple(x[:len(idxs)] for x in out)))
+        return PendingBatch(n_pairs, launched, done, checkpoint=checkpoint,
+                            pair_names=pair_names, iterations=ransac_iterations, call_id=call_id)
 
 
 def register_pairs_batched(
@@ -443,28 +472,34 @@ def launch_sources_to_target(
     adapt_iterations: int | None = None,
 ) -> PendingBatch:
     """Pack and dispatch the buckets of ``register_sources_to_target``."""
-    knobs = _Knobs.of(config, rescue_restarts=rescue_restarts, score_subset=score_subset,
-                      rescore_top=rescore_top, adapt_iterations=adapt_iterations,
-                      ransac_iterations=ransac_iterations, icp_iterations=icp_iterations,
-                      icp_solves_per_nn=icp_solves_per_nn, approx_score=approx_score,
-                      sample_mode=sample_mode)
-    dev = target.device
-    n = len(sources)
-    tights = _Tights(dev)
-    caps = [round_up(max(tights.n_valid(s), target.n_valid, 1), bucket_multiple)
-            for s in sources]
-    bits = _PairBits(n, caps, knobs, pair_bits, pair_extra_bits, generator)
-    buckets: dict[int, list[int]] = {}
-    for i, cap in enumerate(caps):
-        buckets.setdefault(cap, []).append(i)
+    call_id = new_call_id()
+    with Profiler("batch.launch", call_id=call_id):
+        with Profiler("batch.pack"):
+            knobs = _Knobs.of(config, rescue_restarts=rescue_restarts, score_subset=score_subset,
+                              rescore_top=rescore_top, adapt_iterations=adapt_iterations,
+                              ransac_iterations=ransac_iterations, icp_iterations=icp_iterations,
+                              icp_solves_per_nn=icp_solves_per_nn, approx_score=approx_score,
+                              sample_mode=sample_mode)
+            dev = target.device
+            n = len(sources)
+            tights = _Tights(dev)
+            caps = [round_up(max(tights.n_valid(s), target.n_valid, 1), bucket_multiple)
+                    for s in sources]
+            bits = _PairBits(n, caps, knobs, pair_bits, pair_extra_bits, generator)
+            buckets: dict[int, list[int]] = {}
+            for i, cap in enumerate(caps):
+                buckets.setdefault(cap, []).append(i)
 
-    launched = []
-    for cap, idxs in sorted(buckets.items()):
-        src = _stacked([tights.padded(sources[i], cap) for i in idxs], (0, 1, 2))
-        tgt = [x.expand((len(idxs),) + tuple(x.shape)).contiguous() for x in target.at_cap(cap)]
-        b, extra = bits.of(idxs)
-        launched.append((cap, idxs, knobs.step(src, tgt, b, extra, dev)))
-    return PendingBatch(n, launched, {})
+        launched = []
+        for cap, idxs in sorted(buckets.items()):
+            with Profiler("batch.pack"):
+                src = _stacked([tights.padded(sources[i], cap) for i in idxs], (0, 1, 2))
+                tgt = [x.expand((len(idxs),) + tuple(x.shape)).contiguous()
+                       for x in target.at_cap(cap)]
+                b, extra = bits.of(idxs)
+                _count_bucket(cap, [(tights.n_valid(sources[i]), target.n_valid) for i in idxs])
+            launched.append((cap, idxs, knobs.step(src, tgt, b, extra, dev)))
+        return PendingBatch(n, launched, {}, call_id=call_id)
 
 
 def register_sources_to_target(

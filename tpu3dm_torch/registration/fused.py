@@ -26,6 +26,11 @@ products are elementwise sums in a fixed order, so a pair's result has the
 same bits whatever the number of pairs in its call (JAX's serve contract:
 a request's result does not depend on its micro-batch).
 
+``fused_register_step`` opens the span ``fused.step`` and, inside it,
+``fused.correspondences``, ``fused.ransac``, ``fused.rescue`` (with the
+rescue) and ``fused.icp`` (``utils/profiler.py``; recorded only while
+recording is on).
+
 The step runs in a frame shifted by the target centroid rounded to a
 multiple of 64: far from the origin the point-to-plane Jacobian rows
 [n, p x n] pivot about a distant origin and the 6x6 normal equations lose
@@ -53,6 +58,7 @@ from tpu3dm_torch.parallel.multipair import (
     ransac_pair_step,
     rot_cos,
 )
+from tpu3dm_torch.utils.profiler import Profiler
 
 # The election rule of the rescue: a candidate is near the leader when its
 # RANSAC fitness is at least RESCUE_TIE_RATIO of the best; a far one is
@@ -465,59 +471,68 @@ def fused_register_step(
     Returns (T [B, 4, 4] target <- source, ransac_fitness [B], icp_rmse [B]).
     """
     del src_normals
-    route = nn_route(nn_impl)
-    dev = resolve_device(device)
-    (src_pts, src_feat, tgt_pts, tgt_feat, tgt_normals), (src_mask, tgt_mask) = _inputs(
-        dev, (src_pts, src_feat, tgt_pts, tgt_feat, tgt_normals), (src_mask, tgt_mask))
+    with Profiler("fused.step"):
+        route = nn_route(nn_impl)
+        dev = resolve_device(device)
+        with Profiler("fused.correspondences"):
+            (src_pts, src_feat, tgt_pts, tgt_feat, tgt_normals), (src_mask, tgt_mask) = _inputs(
+                dev, (src_pts, src_feat, tgt_pts, tgt_feat, tgt_normals), (src_mask, tgt_mask))
 
-    # T_world = Shift(frame_c) . T . Shift(-frame_c) at return.
-    frame_c = _pn_center(tgt_pts, tgt_mask)
-    src_pts = (src_pts - frame_c[:, None, :]).contiguous()
-    tgt_pts = (tgt_pts - frame_c[:, None, :]).contiguous()
+            # T_world = Shift(frame_c) . T . Shift(-frame_c) at return.
+            frame_c = _pn_center(tgt_pts, tgt_mask)
+            src_pts = (src_pts - frame_c[:, None, :]).contiguous()
+            tgt_pts = (tgt_pts - frame_c[:, None, :]).contiguous()
 
-    q_all, valid = correspondences(
-        src_feat, tgt_feat, src_mask, tgt_mask, tgt_pts, mutual_filter=mutual_filter,
-        approx=approx_features, route=route)
-    n_valid = torch.clamp_min(torch.sum(valid, dim=-1), 1)
-    ransac_kw = dict(dist_thresh=dist_thresh, iterations=ransac_iterations,
-                     batch_size=ransac_batch, approx_score=approx_score,
-                     sample_mode=sample_mode, sample_rows=sample_rows,
-                     adapt_iterations=adapt_iterations)
-    if rescue_restarts > 0:
-        b, m = valid.shape
-        lead = (b, rescue_restarts)
-        chunk = chunk_bits_shape(m, ransac_batch, sample_mode, sample_rows)
-        n_chunks = max(1, ransac_iterations // ransac_batch)
-        sample_bits = checked_bits("sample_bits", sample_bits, lead + (n_chunks,) + chunk,
-                                   generator, dev)
-        max_extra = extra_chunk_count(ransac_iterations, adapt_iterations, ransac_batch)
-        if max_extra > 0:
-            extra_bits = checked_bits("extra_bits", extra_bits, lead + (max_extra,) + chunk,
-                                      generator, dev)
-        cands, ccounts = rescue_candidates(src_pts, q_all, valid, sample_bits, extra_bits,
-                                           rescue_modes=rescue_modes, **ransac_kw)
-        T, count = verify_elect(
-            cands, ccounts, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals,
-            dist_thresh=dist_thresh, icp_thresh=icp_thresh, verify_iters=verify_iters,
-            rescue_modes=rescue_modes, f16_payload=route.f16_payload,
-        )
-    else:
-        T, count = ransac_pair_step(src_pts, q_all, valid, sample_bits, generator,
-                                    score_subset=score_subset, rescore_top=rescore_top,
-                                    extra_bits=extra_bits, **ransac_kw)
-    fitness = count.to(torch.float32) / n_valid.to(torch.float32)
+            q_all, valid = correspondences(
+                src_feat, tgt_feat, src_mask, tgt_mask, tgt_pts, mutual_filter=mutual_filter,
+                approx=approx_features, route=route)
+            n_valid = torch.clamp_min(torch.sum(valid, dim=-1), 1)
+        ransac_kw = dict(dist_thresh=dist_thresh, iterations=ransac_iterations,
+                         batch_size=ransac_batch, approx_score=approx_score,
+                         sample_mode=sample_mode, sample_rows=sample_rows,
+                         adapt_iterations=adapt_iterations)
+        if rescue_restarts > 0:
+            with Profiler("fused.ransac"):
+                b, m = valid.shape
+                lead = (b, rescue_restarts)
+                chunk = chunk_bits_shape(m, ransac_batch, sample_mode, sample_rows)
+                n_chunks = max(1, ransac_iterations // ransac_batch)
+                sample_bits = checked_bits("sample_bits", sample_bits,
+                                           lead + (n_chunks,) + chunk, generator, dev)
+                max_extra = extra_chunk_count(ransac_iterations, adapt_iterations, ransac_batch)
+                if max_extra > 0:
+                    extra_bits = checked_bits("extra_bits", extra_bits,
+                                              lead + (max_extra,) + chunk, generator, dev)
+                cands, ccounts = rescue_candidates(src_pts, q_all, valid, sample_bits,
+                                                   extra_bits, rescue_modes=rescue_modes,
+                                                   **ransac_kw)
+            with Profiler("fused.rescue"):
+                T, count = verify_elect(
+                    cands, ccounts, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals,
+                    dist_thresh=dist_thresh, icp_thresh=icp_thresh, verify_iters=verify_iters,
+                    rescue_modes=rescue_modes, f16_payload=route.f16_payload,
+                )
+                fitness = count.to(torch.float32) / n_valid.to(torch.float32)
+        else:
+            with Profiler("fused.ransac"):
+                T, count = ransac_pair_step(src_pts, q_all, valid, sample_bits, generator,
+                                            score_subset=score_subset, rescore_top=rescore_top,
+                                            extra_bits=extra_bits, **ransac_kw)
+                fitness = count.to(torch.float32) / n_valid.to(torch.float32)
 
-    if icp_iterations == 0:
-        rmse = torch.zeros_like(fitness)
-    else:
-        T, rmse = icp_polish(
-            T, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals,
-            icp_thresh=icp_thresh,
-            icp_iterations=icp_iterations,
-            icp_solves_per_nn=icp_solves_per_nn,
-            f16_payload=route.f16_payload,
-        )
-    return _unshift(T, frame_c), fitness, rmse
+        with Profiler("fused.icp"):
+            if icp_iterations == 0:
+                rmse = torch.zeros_like(fitness)
+            else:
+                T, rmse = icp_polish(
+                    T, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals,
+                    icp_thresh=icp_thresh,
+                    icp_iterations=icp_iterations,
+                    icp_solves_per_nn=icp_solves_per_nn,
+                    f16_payload=route.f16_payload,
+                )
+            T = _unshift(T, frame_c)
+        return T, fitness, rmse
 
 
 def verify_elect_probes(

@@ -1,29 +1,54 @@
 """Named-span profiler with device-fenced timing (port of tpu3dm/utils/profiler.py).
 
-A process-global registry of named timing statistics, used as a context
-manager (``Profiler``, ``profile_block``) or a decorator (``profile``), with
-a sortable text report and file export.  A span given a ``fence`` (tensors,
-or containers and dataclasses of them) synchronizes their CUDA devices
-before it stops the clock, so device work is measured rather than its
-launch.  ``trace(dir)`` records a ``torch.profiler`` Chrome trace.
-Per-span host-RSS deltas are opt-in (``Profiler.enable_memory_tracking``,
-read from /proc/self/statm); ``device_memory_stats()`` reads the CUDA
-caching allocator's byte counters.
+Spans are context managers (``Profiler``, ``profile_block``) or a decorator
+(``profile``); counters are named host integers (``Profiler.count``).
+Recording is off by default.  It is on while ``Profiler.enable()`` is in
+effect or a ``torch.profiler`` session is open in the process, so a
+profiled run records the program's spans with no switch of its own.  A span
+that is off tests that flag and nothing else: it reads no clock, records
+nothing and fences nothing.
+
+A span that is on appends one ``Span`` record to a bounded ring
+(``RING_SPANS`` records): its name; its start and end on
+``time.time_ns()``, the host's wall clock, from which
+``torch.profiler``'s ``kineto_results.trace_start_ns()`` counts the device
+trace's event times, so a record lays over the trace with no further
+conversion; its parent (the innermost span open on the same thread when it
+opened, or -1); the batched call it belongs to (``new_call_id``, inherited
+from the parent); and its thread.  It also adds its duration to the name's
+``TimingStats`` for the text report.  Spans and counters never synchronise,
+launch device work or read a tensor's value.  A span given a ``fence``
+(tensors, or containers and dataclasses of them) synchronizes their CUDA
+devices before it stops the clock, only while recording.
+
+``idle_by_span`` attributes a closed profile's device idle time to the
+program's spans; ``trace(dir)`` records a ``torch.profiler`` Chrome trace
+with the program's spans on a track of their own, and that attribution
+beside it.  Per-span host-RSS deltas are opt-in
+(``Profiler.enable_memory_tracking``, read from /proc/self/statm);
+``device_memory_stats()`` reads the CUDA caching allocator's byte counters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
+import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from functools import wraps
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.autograd.profiler as _torch_autograd_profiler
+
+RING_SPANS = 65_536  # records the ring keeps; older ones drop out
+NO_SPAN = "no span"  # idle_by_span's label outside every span
 
 
 def _rss_bytes() -> int:
@@ -125,35 +150,119 @@ class TimingStats:
         return d
 
 
+class Span(NamedTuple):
+    """One recorded span."""
+
+    name: str
+    start_ns: int  # time.time_ns()
+    end_ns: int
+    parent: int  # index of the enclosing span on the same thread, -1 at the top
+    call_id: int  # the batched call the span belongs to, -1 outside one
+    thread: int  # threading.get_ident()
+    index: int  # the span's own number, in the order spans opened
+
+
+_CALL_IDS = itertools.count()
+_SPAN_IDS = itertools.count()
+_OPEN = threading.local()  # .stack: the Profiler spans open on this thread
+
+
+def new_call_id() -> int:
+    """A new process-wide id for one batched call."""
+    return next(_CALL_IDS)
+
+
+def recording() -> bool:
+    """Whether spans and counters record: ``Profiler.enable()`` is in effect
+    or a ``torch.profiler`` session is open in the process."""
+    return Profiler._enabled or _torch_autograd_profiler._is_profiler_enabled
+
+
+def _open_spans() -> list:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
 class Profiler:
-    """Process-global named-span timing registry."""
+    """A named span, and the process-global registry of recorded spans,
+    counters and per-name timing statistics.
+
+    ``call_id`` names the batched call the span belongs to; None inherits
+    the enclosing span's (-1 without one)."""
 
     _stats: dict[str, TimingStats] = {}
     _track_memory: bool = False
+    _enabled: bool = False
+    _spans: deque[Span] = deque(maxlen=RING_SPANS)
+    _counters: dict[str, int] = {}
+    _counters_lock = threading.Lock()
 
-    def __init__(self, name: str, fence: Any = None):
+    def __init__(self, name: str, fence: Any = None, *, call_id: int | None = None):
         self.name = name
+        self.call_id = call_id
+        self.on = False  # whether this use of the span records
         self._fence = fence
-        self._t0 = 0.0
-        self._rss0 = 0
 
     def __enter__(self) -> Profiler:
-        if Profiler._track_memory:
-            self._rss0 = _rss_bytes()
-        self._t0 = time.perf_counter()
+        self.on = recording()
+        if not self.on:
+            return self
+        stack = _open_spans()
+        up = stack[-1] if stack else None
+        self._index = next(_SPAN_IDS)
+        self._parent = up._index if up is not None else -1
+        self._call = (self.call_id if self.call_id is not None
+                      else up._call if up is not None else -1)
+        stack.append(self)
+        self._rss0 = _rss_bytes() if Profiler._track_memory else None
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc) -> None:
+        if not self.on:
+            return
         if self._fence is not None:
             fence(self._fence)
-        elapsed = time.perf_counter() - self._t0
-        rss_delta = _rss_bytes() - self._rss0 if Profiler._track_memory else None
-        self.record(self.name, elapsed, rss_delta)
+        t1 = time.time_ns()
+        rss_delta = None if self._rss0 is None else _rss_bytes() - self._rss0
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:
+            stack.remove(self)
+        Profiler._spans.append(Span(self.name, self._t0, t1, self._parent, self._call,
+                                    threading.get_ident(), self._index))
+        self.record(self.name, (t1 - self._t0) * 1e-9, rss_delta)
+
+    @classmethod
+    def enable(cls, enabled: bool = True) -> None:
+        """Record spans and counters from now on; False records them only
+        while a ``torch.profiler`` session is open."""
+        cls._enabled = enabled
 
     @classmethod
     def enable_memory_tracking(cls, enabled: bool = True) -> None:
         """Opt-in per-span host-RSS deltas."""
         cls._track_memory = enabled
+
+    @classmethod
+    def count(cls, name: str, n: int) -> None:
+        """Add the host integer ``n`` to counter ``name``, while recording."""
+        if recording():
+            with cls._counters_lock:
+                cls._counters[name] = cls._counters.get(name, 0) + n
+
+    @classmethod
+    def spans(cls) -> list[Span]:
+        """The recorded spans the ring holds, in the order they closed."""
+        return list(cls._spans)
+
+    @classmethod
+    def counters(cls) -> dict[str, int]:
+        with cls._counters_lock:
+            return dict(cls._counters)
 
     @classmethod
     def record(cls, name: str, elapsed: float, rss_delta: int | None = None) -> None:
@@ -165,7 +274,11 @@ class Profiler:
 
     @classmethod
     def reset(cls) -> None:
+        """Clear the timing statistics, the recorded spans and the counters."""
         cls._stats.clear()
+        cls._spans.clear()
+        with cls._counters_lock:
+            cls._counters.clear()
 
     @classmethod
     def report(cls, sort_by: str = "total") -> str:
@@ -207,16 +320,16 @@ def profile_block(name: str, fence: Any = None):
 
 def profile(name: str | None = None, fence_result: bool = False) -> Callable:
     """Decorator span; ``fence_result`` waits for the CUDA devices of the
-    return value before the span closes."""
+    return value before the span closes, while recording."""
 
     def deco(fn: Callable) -> Callable:
         span = name or fn.__qualname__
 
         @wraps(fn)
         def wrapper(*args, **kwargs):
-            with Profiler(span):
+            with Profiler(span) as p:
                 out = fn(*args, **kwargs)
-                if fence_result:
+                if fence_result and p.on:
                     fence(out)
             return out
 
@@ -225,11 +338,92 @@ def profile(name: str | None = None, fence_result: bool = False) -> Callable:
     return deco
 
 
+def _idle(busy: list[tuple[float, float]], hi: float) -> list[tuple[float, float]]:
+    """The stretches of [0, hi] that no (start, end) interval covers."""
+    out, cur = [], 0.0
+    for s, e in sorted(busy):
+        if s > cur:
+            out.append((cur, min(s, hi)))
+        cur = max(cur, e)
+    if cur < hi:
+        out.append((cur, hi))
+    return [(s, e) for s, e in out if e > s]
+
+
+def _innermost(spans: list[tuple[str, float, float]], hi: float) -> list[tuple[float, float, str]]:
+    """[0, hi] cut into (start, end, name) pieces, each named by the innermost
+    span (name, start, end) open over it: the latest to open, then the
+    earliest to close; ``NO_SPAN`` where none is."""
+    cuts = sorted({0.0, hi} | {t for _, s, e in spans for t in (s, e) if 0.0 < t < hi})
+    by_start = sorted(spans, key=lambda sp: sp[1])
+    active: list = []
+    k = 0
+    out = []
+    for a, b in zip(cuts, cuts[1:]):
+        while k < len(by_start) and by_start[k][1] <= a:
+            active.append(by_start[k])
+            k += 1
+        active = [sp for sp in active if sp[2] > a]
+        name = max(active, key=lambda sp: (sp[1], -sp[2]))[0] if active else NO_SPAN
+        out.append((a, b, name))
+    return out
+
+
+def idle_by_span(prof, spans: list[Span]) -> dict[str, float]:
+    """The devices' idle seconds in a closed ``torch.profiler`` profile,
+    by the innermost of ``spans`` open at each idle instant (``NO_SPAN``
+    outside them all).
+
+    Idle is every instant at which no CUDA op of the profile runs on any
+    device, from the trace's start (``trace_start_ns``, on the clock of the
+    spans) to the last end of its device ops and of the spans."""
+    from torch.autograd import DeviceType
+
+    t0 = int(prof.profiler.kineto_results.trace_start_ns())
+    busy = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    marks = [(sp.name, (sp.start_ns - t0) * 1e-3, (sp.end_ns - t0) * 1e-3) for sp in spans
+             if sp.end_ns > t0]
+    hi = max([e for _, e in busy] + [e for _, _, e in marks], default=0.0)
+    pieces = _innermost(marks, hi)
+    out: dict[str, float] = {}
+    j = 0
+    for s, e in _idle(busy, hi):
+        while j < len(pieces) and pieces[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(pieces) and pieces[k][0] < e:
+            a, b, name = pieces[k]
+            out[name] = out.get(name, 0.0) + (min(b, e) - max(a, s)) * 1e-6
+            k += 1
+    return out
+
+
+def _add_span_track(path: Path, spans: list[Span]) -> None:
+    """Append ``spans`` to the Chrome trace at ``path`` as complete events
+    on a process track of their own, on the trace's time base."""
+    data = json.loads(path.read_text())
+    base = int(data.get("baseTimeNanoseconds", 0))
+    pid = "program spans"
+    events = data.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for sp in spans:
+        events.append({"ph": "X", "cat": "program", "name": sp.name, "pid": pid,
+                       "tid": sp.thread, "ts": (sp.start_ns - base) * 1e-3,
+                       "dur": (sp.end_ns - sp.start_ns) * 1e-3,
+                       "args": {"index": sp.index, "parent": sp.parent,
+                                "call_id": sp.call_id}})
+    path.write_text(json.dumps(data))
+
+
 @contextmanager
 def trace(log_dir: str | Path):
     """A ``torch.profiler`` trace of the block (CPU, and CUDA where
-    available), written as ``trace.json`` (Chrome trace format) under
-    ``log_dir``."""
+    available), written under ``log_dir``: ``trace.json`` (Chrome trace
+    format) with the program's spans of the block as complete events on a
+    track of their own, and ``idle_by_span.json``, the devices' idle seconds
+    by program span (``idle_by_span``)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     activities = [ProfilerActivity.CPU]
@@ -239,4 +433,10 @@ def trace(log_dir: str | Path):
     log_dir.mkdir(parents=True, exist_ok=True)
     with torch_profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    t0 = int(prof.profiler.kineto_results.trace_start_ns())
+    spans = [sp for sp in Profiler.spans() if sp.end_ns > t0]
+    path = log_dir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    _add_span_track(path, spans)
+    (log_dir / "idle_by_span.json").write_text(
+        json.dumps(idle_by_span(prof, spans), indent=2, sort_keys=True) + "\n")
