@@ -299,3 +299,183 @@ def test_checkpoint_store_reads_across_packages(tmp_path, writer):
     assert (pair.fitness, pair.inlier_rmse, pair.iterations) == (0.87, 0.012, 23)
     assert r.read_manifest() == {"n_clouds": 5, "voxel_size": 0.3}
     assert r.read_poses().shape == (5, 4, 4)
+
+
+# ---------------------------------------------------------------------------
+# The packing: whole buckets on the device, against the per-cloud oracle
+# ---------------------------------------------------------------------------
+
+PACK_KW = dict(ransac_iterations=256, icp_iterations=2, bucket_multiple=256)
+
+
+@pytest.fixture(scope="module")
+def port_clouds():
+    """Eight clouds of four 3000-point arch pairs, preprocessed by the port
+    on the CPU: prefix masks at one down capacity, 630-660 valid rows."""
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair as p_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+
+    raw = [c for s in range(4) for c in p_pair(3000, seed=s, sigma=0.01)[:2]]
+    return preprocess_points_batch(raw, PCFG.preprocess, full_normals=False, device="cpu")
+
+
+def _reshaped(cloud, extra, holes, seed):
+    """``cloud`` at down capacity N + ``extra``: its valid rows in order, at
+    scattered rows with ``holes`` (else first), and noise in every other row,
+    which the packing must drop."""
+    from tpu3dm_torch.core.cloud import PointCloud
+
+    gen = torch.Generator().manual_seed(seed)
+    d = cloud.down
+    n, cap = int(d.mask.sum()), d.points.shape[0] + extra
+    pos = (torch.sort(torch.randperm(cap, generator=gen)[:n]).values if holes
+           else torch.arange(n))
+
+    def fill(x):
+        out = torch.randn((cap,) + tuple(x.shape[1:]), generator=gen)
+        out[pos] = x[d.mask]
+        return out
+
+    mask = torch.zeros(cap, dtype=torch.bool)
+    mask[pos] = True
+    down = PointCloud(points=fill(d.points), mask=mask, normals=fill(d.normals),
+                      features=fill(d.features))
+    return ProcessedCloud(full=cloud.full, down=down, voxel_size=cloud.voxel_size)
+
+
+def _oracle_pack(lanes, cap, dev, *, normals):
+    """The per-cloud packing: each lane's valid rows, padded to ``cap``,
+    moved to ``dev`` and stacked in lane order."""
+    parts = [pbatch._at_cap(pbatch._tight(c), cap, dev) for c in lanes]
+    return tuple(torch.stack([p[w] for p in parts])
+                 for w in ((0, 1, 2, 3) if normals else (0, 1, 2)))
+
+
+def _pack_case(case, clouds):
+    """(pairs or (sources, target), device, mesh) of a packing case."""
+    from tpu3dm_torch.parallel import mesh as pmesh
+
+    a, b, c, d, e, f, g, h = clouds
+    cpu = torch.device("cpu")
+    if case == "holes":
+        a, b, c, d = (_reshaped(x, 96, True, i) for i, x in enumerate((a, b, c, d)))
+        return [(a, b), (c, d), (b, c)], cpu, None
+    if case == "two_capacities":
+        # Each bucket side holds clouds of down capacity 768 and 1024.
+        a, d = (_reshaped(x, 256, False, i) for i, x in enumerate((a, d)))
+        return [(a, b), (c, d), (e, a), (d, f)], cpu, None
+    if case == "shared_cloud":
+        return [(a, b), (a, c), (d, b), (a, b)], cpu, None
+    if case == "other_device":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the clouds lie on the CPU, the run on the card")
+        return [(a, b), (c, d), (e, f)], torch.device("cuda"), None
+    if case == "mesh_quantum_4":
+        mesh = pmesh.make_mesh(4, 1, devices=[cpu] * 4)
+        return [(a, b), (c, d), (e, f), (g, h), (b, c)], cpu, mesh
+    assert case == "to_target"
+    a, b, c = (_reshaped(x, 96, True, i) for i, x in enumerate((a, b, c)))
+    return ([a, b, c, d], h), cpu, None
+
+
+def _run_pack_case(case, clouds, monkeypatch, pack):
+    """Register the case with ``pack`` as the bucket packing: (the arguments
+    each step took, the BatchResult)."""
+    pairs, dev, mesh = _pack_case(case, clouds)
+    calls = []
+    real_step, real_mesh = pbatch.fused_register_step, pbatch.batched_register
+
+    def step(*args, **kw):
+        calls.append(args + (kw.get("extra_bits"),))
+        return real_step(*args, **kw)
+
+    def mesh_step(m, *args, **kw):
+        calls.append(args + (kw.get("extra_bits"),))
+        return real_mesh(m, *args, **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(pbatch, "_pack", pack)
+        m.setattr(pbatch, "fused_register_step", step)
+        m.setattr(pbatch, "batched_register", mesh_step)
+        gen = torch.Generator().manual_seed(11)
+        if case == "to_target":
+            sources, target = pairs
+            res = pbatch.register_sources_to_target(
+                sources, pbatch.ResidentTarget(target, device=dev), PCFG, generator=gen,
+                **PACK_KW)
+        else:
+            res = pbatch.register_pairs_batched(pairs, PCFG, generator=gen, mesh=mesh,
+                                                device=dev, **PACK_KW)
+    return calls, res
+
+
+@pytest.mark.parametrize("case", ["holes", "two_capacities", "shared_cloud", "other_device",
+                                  "mesh_quantum_4", "to_target"])
+def test_bucket_packing_equals_the_per_cloud_packing(port_clouds, monkeypatch, case):
+    """Every tensor the step takes (points, features, masks, normals, bits,
+    in lane order) equals the per-cloud packing's, ``torch.equal``; so do the
+    results under the same generator, bit for bit."""
+    got_calls, got = _run_pack_case(case, port_clouds, monkeypatch, pbatch._pack)
+    want_calls, want = _run_pack_case(case, port_clouds, monkeypatch, _oracle_pack)
+    assert len(got_calls) == len(want_calls) > 0
+    for g_args, w_args in zip(got_calls, want_calls):
+        assert len(g_args) == len(w_args)
+        for x, y in zip(g_args, w_args):
+            if y is None:
+                assert x is None
+            else:
+                assert x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+    assert got.bucket_of_pair == want.bucket_of_pair
+    for field in ("transforms", "ransac_fitness", "icp_rmse"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    if case == "two_capacities":
+        assert {c.down.points.shape[0] for pr in _pack_case(case, port_clouds)[0]
+                for c in pr} == {768, 1024}
+    if case == "mesh_quantum_4":
+        assert [len(args[0]) for args in got_calls] == [8]
+
+
+def _pack_ops(pairs, monkeypatch):
+    """(aten ops that started inside the call's ``batch.pack`` spans, the
+    call's counters) of one ``launch_pairs_batched`` under ``torch.profiler``
+    on the CPU, the step itself stubbed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu3dm_torch.utils.profiler import Profiler
+
+    def step(src_pts, *args, **kw):
+        b = src_pts.shape[0]
+        return torch.eye(4).expand(b, 4, 4), torch.zeros(b), torch.zeros(b)
+
+    shape, _ = pbatch.pair_bits_shape(768, ransac_iterations=PACK_KW["ransac_iterations"])
+    bits = torch.zeros((len(pairs),) + shape, dtype=torch.int64)
+    Profiler.reset()
+    with monkeypatch.context() as m:
+        m.setattr(pbatch, "fused_register_step", step)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pending = pbatch.launch_pairs_batched(pairs, PCFG, pair_bits=bits, device="cpu",
+                                                  **PACK_KW)
+    counters = Profiler.counters()
+    packs = [(s.start_ns, s.end_ns) for s in Profiler.spans() if s.name == "batch.pack"]
+    Profiler.reset()
+    assert set(pending.resolve().bucket_of_pair) == {768}
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    ops = [e.name for e in prof.events() if e.name.startswith("aten::")
+           and any(a <= t0 + e.time_range.start * 1e3 <= b for a, b in packs)]
+    return ops, counters
+
+
+def test_packing_op_count_does_not_grow_with_the_batch(port_clouds, monkeypatch):
+    """4 and 16 pairs of distinct clouds in one bucket: the same aten ops in
+    the packing, and one host read of the counts a call."""
+    import dataclasses
+
+    def pairs(n):
+        copies = [dataclasses.replace(port_clouds[i % 8]) for i in range(2 * n)]
+        return [(copies[2 * i], copies[2 * i + 1]) for i in range(n)]
+
+    ops4, counters4 = _pack_ops(pairs(4), monkeypatch)
+    ops16, counters16 = _pack_ops(pairs(16), monkeypatch)
+    assert ops4 and sorted(ops4) == sorted(ops16)
+    assert counters4["batch.pack_syncs"] == counters16["batch.pack_syncs"] == 1
+    assert (counters4["batch.pairs"], counters16["batch.pairs"]) == (4, 16)

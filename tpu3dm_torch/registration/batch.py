@@ -5,13 +5,18 @@ Stacking a mixed-size workload pads every pair to the largest capacity of
 the batch, so a few large pairs drag every small one to their NN work.  The
 batch API instead
 
-  1. takes each preprocessed cloud's valid rows (one host count a cloud),
+  1. counts each distinct cloud's valid rows on its device, all read to the
+     host at once (one host sync a call),
   2. groups the pairs into capacity buckets (round_up to ``bucket_multiple``
      of the larger cloud of the pair),
-  3. runs each bucket as one ``fused_register_step`` call, with the knobs
+  3. packs each bucket side on the device: the lanes' down clouds stacked,
+     their valid rows moved to the front by rank, in order, and zero rows
+     after them, with a fixed number of device ops for each down capacity
+     and device among the lanes, whatever the bucket's pair count,
+  4. runs each bucket as one ``fused_register_step`` call, with the knobs
      JAX's ``_batched_step`` passes (``ransac_batch=min(iterations, 4096)``,
      ``approx_features=False``, the default ``nn_impl="values_pk"``),
-  4. returns per-pair results in input order (``PendingBatch.resolve``),
+  5. returns per-pair results in input order (``PendingBatch.resolve``),
      writing checkpoint records and restoring the pairs a store already
      holds without dispatching them.
 
@@ -41,7 +46,9 @@ packing; ``batch.resolve`` around ``PendingBatch.resolve``, with its
 launch's call id.  Counters a bucket: ``batch.pairs`` (the pairs it
 registers), ``batch.rows_valid`` and ``batch.rows_padded`` (each pair's
 valid source and target rows up to the bucket's capacity, and twice the
-capacity).
+capacity).  Counter a read: ``batch.pack_syncs``, the packing's reads of
+tensor values to the host (one a call for the valid-row counts, and one
+for each copy of rows from a card to a run on the CPU).
 
 One deliberate departure from JAX: no power-of-two padding of a bucket's
 pair axis.  JAX pads it so that repeated calls reuse a few compiled
@@ -211,10 +218,18 @@ class _PairBits:
                                   else draw_bits(extra_shape, generator))
 
     def of(self, idxs: list[int]) -> tuple[torch.Tensor, torch.Tensor | None]:
-        bits = torch.stack([torch.as_tensor(self.bits[i]) for i in idxs])
+        bits = _rows(self.bits, idxs)
         if self.extra is None or self.extra[idxs[0]] is None:
             return bits, None
-        return bits, torch.stack([torch.as_tensor(self.extra[i]) for i in idxs])
+        return bits, _rows(self.extra, idxs)
+
+
+def _rows(given, idxs: list[int]) -> torch.Tensor:
+    """Rows ``idxs`` of a [P, ...] tensor (one gather) or of a sequence of P
+    tensors (one stack)."""
+    if isinstance(given, torch.Tensor):
+        return given.index_select(0, torch.tensor(idxs).to(given.device, non_blocking=True))
+    return torch.stack([torch.as_tensor(given[i]) for i in idxs])
 
 
 class ResidentTarget:
@@ -296,35 +311,69 @@ class PendingBatch:
         return BatchResult(out_T, out_fit, out_rmse, bucket_of)
 
 
-class _Tights:
-    """Each distinct cloud's valid rows once a call, and their padded copies
-    on the run's device once a capacity (the pairs of a batch often share
-    clouds)."""
-
-    def __init__(self, dev: torch.device) -> None:
-        self.dev = dev
-        self._rows: dict[int, tuple] = {}
-        self._padded: dict[tuple[int, int], tuple] = {}
-
-    def rows(self, cloud: ProcessedCloud) -> tuple:
-        key = id(cloud)
-        if key not in self._rows:
-            self._rows[key] = (cloud, _tight(cloud))  # the cloud keeps its id alive
-        return self._rows[key][1]
-
-    def n_valid(self, cloud: ProcessedCloud) -> int:
-        return int(self.rows(cloud)[0].shape[0])
-
-    def padded(self, cloud: ProcessedCloud, cap: int) -> tuple:
-        """(points, features, mask, normals) at capacity ``cap`` on the device."""
-        key = (id(cloud), cap)
-        if key not in self._padded:
-            self._padded[key] = _at_cap(self.rows(cloud), cap, self.dev)
-        return self._padded[key]
+def _on(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``x`` on ``dev``, by one copy where it lies elsewhere.  A copy to a
+    card is queued (a pageable source is staged before the call returns); a
+    copy from a card to the host waits for it, and counts as a pack sync."""
+    if x.device.type != "cpu" and dev.type == "cpu":
+        Profiler.count("batch.pack_syncs", 1)
+    return x.to(dev, non_blocking=dev.type == "cuda")
 
 
-def _stacked(parts: list[tuple], which: tuple[int, ...]) -> list[torch.Tensor]:
-    return [torch.stack([p[w] for p in parts]) for w in which]
+def _group(cloud: ProcessedCloud) -> tuple:
+    """The clouds the packing stacks together: one down capacity, feature
+    width and device."""
+    return tuple(cloud.down.features.shape) + (cloud.down.mask.device,)
+
+
+def _valid_counts(clouds, dev: torch.device) -> dict[int, int]:
+    """Each distinct cloud's valid-row count, by ``id`` within the call, from
+    one host read: the masks of each ``_group`` stacked and summed on their
+    device, and every sum gathered on ``dev``."""
+    groups: dict[tuple, dict[int, ProcessedCloud]] = {}
+    for c in clouds:
+        groups.setdefault(_group(c), {})[id(c)] = c
+    if not groups:
+        return {}
+    sums = [_on(torch.stack([c.down.mask for c in g.values()]).sum(dim=1), dev)
+            for g in groups.values()]
+    counts = torch.cat(sums).tolist()
+    Profiler.count("batch.pack_syncs", 1)
+    return dict(zip((k for g in groups.values() for k in g), counts))
+
+
+def _compact(clouds: list[ProcessedCloud], cap: int, dev: torch.device,
+             normals: bool) -> tuple[torch.Tensor, ...]:
+    """(points, features, mask[, normals]) [b, cap, ...] on ``dev`` of clouds
+    of one ``_group``: row j of a cloud is its j-th valid row (in their order,
+    wherever they sit) below its count, and zero from there."""
+    downs = [c.down for c in clouds]
+    fields = [torch.stack([d.points for d in downs]), torch.stack([d.features for d in downs])]
+    if normals:
+        fields.append(torch.stack([d.normals for d in downs]))
+    rank = torch.cumsum(torch.stack([d.mask for d in downs]), dim=1)  # valid rows up to each
+    want = torch.arange(1, cap + 1, device=rank.device).expand(len(downs), cap).contiguous()
+    row = torch.searchsorted(rank, want).clamp_(max=rank.shape[1] - 1)  # row with rank j + 1
+    mask = want <= rank[:, -1:]
+    out = [torch.where(mask[..., None], f.gather(1, row[..., None].expand(-1, -1, f.shape[-1])),
+                       0.0) for f in fields]
+    return tuple(_on(x, dev) for x in out[:2] + [mask] + out[2:])
+
+
+def _pack(lanes: list[ProcessedCloud], cap: int, dev: torch.device, *,
+          normals: bool) -> tuple[torch.Tensor, ...]:
+    """(points, features, mask[, normals]) [len(lanes), cap, ...] on ``dev``:
+    lane j is ``_at_cap(_tight(lanes[j]), cap, dev)``, bit for bit.  A fixed
+    number of device ops for each ``_group`` among the lanes, none a lane."""
+    groups: dict[tuple, list[int]] = {}
+    for j, c in enumerate(lanes):
+        groups.setdefault(_group(c), []).append(j)
+    parts = [_compact([lanes[j] for j in js], cap, dev, normals) for js in groups.values()]
+    if len(parts) == 1:
+        return parts[0]
+    at = np.argsort([j for js in groups.values() for j in js])  # lane j's row of the cat
+    at = torch.from_numpy(at).to(dev, non_blocking=dev.type == "cuda")
+    return tuple(torch.cat(f).index_select(0, at) for f in zip(*parts))
 
 
 def _count_bucket(cap: int, n_valid: list[tuple[int, int]]) -> None:
@@ -386,12 +435,14 @@ def launch_pairs_batched(
                         done[i] = rec
 
             # --- valid rows, capacities, buckets, bits ------------------------
-            tights = _Tights(dev)
             # A restored pair may come without clouds (None): it takes the smallest
             # bucket, which only shapes the bits it draws and never runs.
-            caps = [round_up(1, bucket_multiple) if i in done and s is None and t is None
-                    else round_up(max(tights.n_valid(s), tights.n_valid(t), 1), bucket_multiple)
-                    for i, (s, t) in enumerate(pairs)]
+            bare = [i in done and s is None and t is None for i, (s, t) in enumerate(pairs)]
+            n_valid = _valid_counts([c for pair, b in zip(pairs, bare) if not b for c in pair],
+                                    dev)
+            caps = [round_up(1, bucket_multiple) if b
+                    else round_up(max(n_valid[id(s)], n_valid[id(t)], 1), bucket_multiple)
+                    for (s, t), b in zip(pairs, bare)]
             bits = _PairBits(n_pairs, caps, knobs, pair_bits, pair_extra_bits, generator)
             buckets: dict[int, list[int]] = {}
             for i, cap in enumerate(caps):
@@ -405,10 +456,10 @@ def launch_pairs_batched(
                 # The mesh's quantum: repeats of the bucket's first pair (and
                 # its bits), dropped after the step.
                 lanes = idxs + [idxs[0]] * (round_up(len(idxs), quantum) - len(idxs))
-                src = _stacked([tights.padded(pairs[i][0], cap) for i in lanes], (0, 1, 2))
-                tgt = _stacked([tights.padded(pairs[i][1], cap) for i in lanes], (0, 1, 2, 3))
+                src = _pack([pairs[i][0] for i in lanes], cap, dev, normals=False)
+                tgt = _pack([pairs[i][1] for i in lanes], cap, dev, normals=True)
                 b, extra = bits.of(lanes)
-                _count_bucket(cap, [(tights.n_valid(pairs[i][0]), tights.n_valid(pairs[i][1]))
+                _count_bucket(cap, [(n_valid[id(pairs[i][0])], n_valid[id(pairs[i][1])])
                                     for i in idxs])
             out = knobs.step(src, tgt, b, extra, dev, mesh)
             launched.append((cap, idxs, tuple(x[:len(idxs)] for x in out)))
@@ -482,8 +533,8 @@ def launch_sources_to_target(
                               sample_mode=sample_mode)
             dev = target.device
             n = len(sources)
-            tights = _Tights(dev)
-            caps = [round_up(max(tights.n_valid(s), target.n_valid, 1), bucket_multiple)
+            n_valid = _valid_counts(sources, dev)
+            caps = [round_up(max(n_valid[id(s)], target.n_valid, 1), bucket_multiple)
                     for s in sources]
             bits = _PairBits(n, caps, knobs, pair_bits, pair_extra_bits, generator)
             buckets: dict[int, list[int]] = {}
@@ -493,11 +544,11 @@ def launch_sources_to_target(
         launched = []
         for cap, idxs in sorted(buckets.items()):
             with Profiler("batch.pack"):
-                src = _stacked([tights.padded(sources[i], cap) for i in idxs], (0, 1, 2))
+                src = _pack([sources[i] for i in idxs], cap, dev, normals=False)
                 tgt = [x.expand((len(idxs),) + tuple(x.shape)).contiguous()
                        for x in target.at_cap(cap)]
                 b, extra = bits.of(idxs)
-                _count_bucket(cap, [(tights.n_valid(sources[i]), target.n_valid) for i in idxs])
+                _count_bucket(cap, [(n_valid[id(sources[i])], target.n_valid) for i in idxs])
             launched.append((cap, idxs, knobs.step(src, tgt, b, extra, dev)))
         return PendingBatch(n, launched, {}, call_id=call_id)
 
