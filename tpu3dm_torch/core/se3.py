@@ -30,8 +30,9 @@ def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
     The blocks are concatenated, not written into a zero tensor, so
     ``torch.func.jacfwd`` and ``vmap`` trace through it (and ``inverse`` /
-    ``exp_se3``, which assemble with it)."""
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    ``exp_se3``, which assemble with it).  The bottom row is made on R's
+    device (no host copy, so a CUDA graph can capture it)."""
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     top = torch.cat([R, t[..., None]], dim=-1)
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 

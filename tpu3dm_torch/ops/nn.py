@@ -190,9 +190,18 @@ def nn_search(
     target_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Size-adaptive top-1 NN: the dense search up to DENSE_MAX_ENTRIES
-    entries, the tiled one (kernels on CUDA) above."""
+    entries, the tiled one (kernels on CUDA) above.  Queries [..., Nq, d]
+    against one target [Nt, d] pick the tier by Nq x Nt; the tiled tier
+    then searches all their rows at once."""
     if query.shape[-2] * target.shape[-2] <= DENSE_MAX_ENTRIES:
         return nn_search_dense(query, target, query_mask, target_mask)
+    if query.ndim > 2 and target.ndim == 2:
+        rows = query.shape[:-1]
+        if query_mask is not None:
+            query_mask = query_mask.expand(rows).reshape(-1)
+        d2, idx = nn_search_tiled(query.reshape(-1, query.shape[-1]), target, query_mask,
+                                  target_mask)
+        return d2.reshape(rows), idx.reshape(rows)
     return nn_search_tiled(query, target, query_mask, target_mask)
 
 

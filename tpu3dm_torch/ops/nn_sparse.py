@@ -1,10 +1,12 @@
 """Block-sparse nearest-neighbour search for large clouds (port of tpu3dm/ops/nn_sparse.py).
 
-Both clouds are KD-partitioned on the host (``kd_perm``: the JAX package's
-native C++ partition, copied into csrc/host.cpp) and padded to a block multiple with far-away
-sentinel rows (``pad_sorted``).  ``candidate_blocks`` ranks, for each query
-block, the target blocks by box-to-box distance (plain PyTorch, as it was
-XLA in JAX) and keeps the w best with an exactness certificate.  The search
+Both clouds are KD-partitioned (``kd_perm``: on the host, the JAX package's
+native C++ partition, copied into csrc/host.cpp; ``kd_perm_device``: the
+same leaves on the points' device, for clouds that are already there) and
+padded to a block multiple with far-away sentinel rows (``pad_sorted``).
+``candidate_blocks`` ranks, for each query block, the target blocks by
+box-to-box distance (plain PyTorch, as it was XLA in JAX) and keeps the w
+best with an exactness certificate.  The search
 over those candidates is ``nn_search_table``: on CUDA it launches
 csrc/nn_blocksparse.cu, which replaces ``_sparse_nn_kernel``; on the CPU it
 runs ``nn_search_table_plain``, the same arithmetic chunked over query blocks.
@@ -14,6 +16,7 @@ runs ``nn_search_table_plain``, the same arithmetic chunked over query blocks.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -76,10 +79,109 @@ def kd_perm(points: np.ndarray, block: int) -> np.ndarray:
     return out
 
 
-def pad_sorted(points: np.ndarray, block: int) -> np.ndarray:
-    """Pad a sorted cloud to a block multiple with far-away sentinel rows."""
+def kd_levels(n: int, block: int) -> list[list[tuple[int, bool]]]:
+    """The segments of ``kd_perm``'s recursion, level by level: each level
+    lists (size, splits) for every segment in position order, leaves
+    included, down to the first level where none splits.  The rule sees
+    sizes only (csrc/host.cpp ``t3n_kd_rec``): a segment of more than
+    ``block`` points splits at k = (n // block // 2) * block when its size
+    is a block multiple, else at n // 2; its left part holds the k points
+    lowest on its widest axis."""
+    levels = []
+    cur = [n] if n > 0 else []
+    while block >= 1 and any(s > block for s in cur):
+        levels.append([(s, s > block) for s in cur])
+        nxt = []
+        for s in cur:
+            if s <= block:
+                nxt.append(s)
+                continue
+            k = (s // block // 2) * block if s % block == 0 else s // 2
+            nxt += [k, s - k]
+        cur = nxt
+    return levels
+
+
+def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys of float32 values in [0, 2^32), in the values' order."""
+    b = x.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(b < 0, -1 - b, b + (1 << 31))
+
+
+@functools.lru_cache(maxsize=16)
+def _kd_plan(n: int, block: int, device: torch.device) -> tuple[list, torch.Tensor | None]:
+    """``kd_perm_device``'s plan for ``n`` points: per level (segments,
+    splitting segments, the largest splitting segment's size), and one
+    int64 table on ``device`` holding, level after level, every segment's
+    size and split flag, then the splitting segments' indices, starts and
+    sizes.  It depends on ``n`` and ``block`` alone, so it is made and
+    uploaded once, not once a cloud."""
+    flat, plan = [], []
+    for level in kd_levels(n, block):
+        starts = np.cumsum([0] + [s for s, _ in level[:-1]]).tolist()
+        splits = [i for i, (_, split) in enumerate(level) if split]
+        plan.append((len(level), len(splits), max(level[i][0] for i in splits)))
+        flat += [s for s, _ in level] + [int(split) for _, split in level]
+        flat += splits + [starts[i] for i in splits] + [level[i][0] for i in splits]
+    if not plan:
+        return plan, None
+    return plan, torch.tensor(flat, dtype=torch.int64).to(device)
+
+
+def kd_perm_device(points: torch.Tensor, block: int) -> torch.Tensor:
+    """``kd_perm`` on the points' device: [N] int64 permutation grouping a
+    [N, 3] float32 cloud into the same leaves of at most ``block`` points,
+    in the same order (the order inside a leaf may differ).
+
+    Level by level (``kd_levels``, worked out on the host from N and
+    ``block`` alone, and uploaded once for each N, ``block`` and device):
+    each splitting segment's bounds, from its rows gathered into one padded
+    [segments, largest, 3] view (a row past a segment's end repeats its
+    last row), its widest axis (float64 spans, the first of equal ones, as
+    the host takes it), then
+    one stable sort of every point by (segment, coordinate on its
+    segment's axis), which puts each splitting segment's k lowest points in
+    its left part.  Leaves keep their order.  No host read, no atomics;
+    about 11 levels at 1M points and block 512.  Where coordinates tie at a
+    split, either side may take the tied points (``std::nth_element`` has
+    no order)."""
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"kd_perm_device: expected [N, 3] points, got {tuple(points.shape)}")
+    n, dev = points.shape[0], points.device
+    order = torch.arange(n, dtype=torch.int64, device=dev)
+    plan, table = _kd_plan(n, block, dev)
+    if not plan:
+        return order
+    cur = points.to(torch.float32)
+    at = 0
+    for nseg, nsplit, widest in plan:
+        sizes, split = table[at:at + nseg], table[at + nseg:at + 2 * nseg].to(torch.bool)
+        at += 2 * nseg
+        which, start, size = table[at:at + 3 * nsplit].reshape(3, nsplit)
+        at += 3 * nsplit
+        rows = start[:, None] + torch.minimum(torch.arange(widest, device=dev)[None, :],
+                                              size[:, None] - 1)
+        view = cur[rows]  # [nsplit, widest, 3]
+        span = (torch.amax(view, dim=1).to(torch.float64)
+                - torch.amin(view, dim=1).to(torch.float64))
+        axis = torch.zeros((nseg,), dtype=torch.int64, device=dev).index_copy_(
+            0, which, torch.argmax(span, dim=1))
+        seg = torch.repeat_interleave(torch.arange(nseg, device=dev), sizes, output_size=n)
+        coord = torch.gather(cur, 1, axis[seg][:, None])[:, 0]
+        key = torch.where(split[seg], _ordered_bits(coord), 0) + (seg << 32)
+        step = torch.sort(key, stable=True).indices
+        cur, order = cur[step], order[step]
+    return order
+
+
+def pad_sorted(points, block: int):
+    """Pad a sorted cloud to a block multiple with far-away sentinel rows: a
+    host array, or a tensor on its device."""
     n = points.shape[0]
     pad = (-n) % block
+    if isinstance(points, torch.Tensor):
+        fill = torch.full((pad, 3), SPARSE_PAD, dtype=torch.float32, device=points.device)
+        return torch.cat([points.to(torch.float32), fill], dim=0)
     if pad == 0:
         return np.asarray(points, np.float32)
     return np.concatenate(

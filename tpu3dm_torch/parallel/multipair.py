@@ -44,9 +44,11 @@ def f32_square(x: float) -> float:
 
 
 def draw_bits(shape: tuple[int, ...], generator: torch.Generator | None = None) -> torch.Tensor:
-    """int64 tensor of ``shape`` holding uniform uint32 values, drawn on the
-    CPU from ``generator`` (torch's default generator when None)."""
-    return torch.randint(0, 1 << 32, shape, generator=generator, dtype=torch.int64)
+    """int64 tensor of ``shape`` holding uniform uint32 values, drawn from
+    ``generator`` on its device (torch's default generator, on the CPU, when
+    None): a generator on the card draws there, with no host draw or copy."""
+    return torch.randint(0, 1 << 32, shape, generator=generator, dtype=torch.int64,
+                         device=None if generator is None else generator.device)
 
 
 def chunk_bits_shape(m: int, batch_size: int, sample_mode: str = "roll",

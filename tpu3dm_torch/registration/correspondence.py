@@ -71,11 +71,12 @@ def correspondence_noise_draws(
     ns: int, n_src: int, n_tgt: int, generator: torch.Generator | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The draws of ``feature_correspondences``' noise injection, on the
-    CPU: (uniform [ns], source indices in [0, max(n_src, 1)), target indices
-    in [0, max(n_tgt, 1)))."""
-    u = torch.rand((ns,), generator=generator, dtype=torch.float32)
-    rand_src = torch.randint(0, max(n_src, 1), (ns,), generator=generator)
-    rand_tgt = torch.randint(0, max(n_tgt, 1), (ns,), generator=generator)
+    generator's device (the CPU when None): (uniform [ns], source indices in
+    [0, max(n_src, 1)), target indices in [0, max(n_tgt, 1)))."""
+    dev = None if generator is None else generator.device
+    u = torch.rand((ns,), generator=generator, dtype=torch.float32, device=dev)
+    rand_src = torch.randint(0, max(n_src, 1), (ns,), generator=generator, device=dev)
+    rand_tgt = torch.randint(0, max(n_tgt, 1), (ns,), generator=generator, device=dev)
     return u, rand_src, rand_tgt
 
 

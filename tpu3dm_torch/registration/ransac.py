@@ -6,9 +6,9 @@ score (the fp32 score goes through ops/ransac_score.score_features at one
 lane: csrc/ransac_score.cu on CUDA).  ``ransac_from_correspondences`` keeps
 the best hypothesis and re-fits it on its inliers (exact Horn);
 ``ransac_two_mode`` folds the chunk's best and its best rotation-distinct
-hypothesis into two mode slots.  The JAX ``while_loop`` becomes a Python
-loop whose confidence stop reads the leader's count on the host once per
-chunk.
+hypothesis into two mode slots, and runs several restarts as lanes of one
+loop.  The JAX ``while_loop`` becomes a Python loop whose confidence stop
+reads the leaders' counts on the host once per chunk.
 
 Randomness: JAX draws each chunk's bits with ``jax.random.bits(k, (K, 2),
 uint32)``.  Here the caller passes them (``sample_bits``, int64 holding
@@ -53,31 +53,38 @@ def _required_iters(best_count: int, n_valid: int, conf: np.float32, max_iterati
     return min(req, np.float32(max_iterations))
 
 
-def _checked_chunk_bits(sample_bits, n_chunks: int, batch_size: int, generator):
+def _checked_chunk_bits(sample_bits, n_chunks: int, batch_size: int, generator,
+                        lead: tuple[int, ...] = ()):
+    """[*lead, >= n_chunks, batch_size, 2] bits, drawn from ``generator`` when None."""
     if sample_bits is None:
-        sample_bits = draw_bits((n_chunks, batch_size, 2), generator)
-    if sample_bits.shape[0] < n_chunks or tuple(sample_bits.shape[1:]) != (batch_size, 2):
-        raise ValueError(f"sample_bits must be [{n_chunks}, {batch_size}, 2], "
-                         f"got {tuple(sample_bits.shape)}")
+        sample_bits = draw_bits(lead + (n_chunks, batch_size, 2), generator)
+    if (sample_bits.ndim != len(lead) + 3 or tuple(sample_bits.shape[:len(lead)]) != lead
+            or sample_bits.shape[-3] < n_chunks
+            or tuple(sample_bits.shape[-2:]) != (batch_size, 2)):
+        want = ", ".join(str(x) for x in (*lead, n_chunks, batch_size, 2))
+        raise ValueError(f"sample_bits must be [{want}], got {tuple(sample_bits.shape)}")
     return sample_bits
 
 
 def _compacted(p_all, q_all, valid):
     """Valid correspondences first (stable), their count, and the score
-    operands at one lane: (p, q, valid, n_valid, pq [1, M, 6], F, c, valid1)."""
+    operands, a lane a leading row of p_all / q_all ([L, M, 3]; [M, 3] is
+    one lane): (p, q, valid, n_valid, pq [L, M, 6], F, c, valid1 [L, M])."""
     order = compaction_permutation(valid)
-    p_all, q_all, valid = p_all[order], q_all[order], valid[order]
-    pq, F, c = prepare_correspondences(p_all[None], q_all[None])
+    p_all, q_all, valid = p_all[..., order, :], q_all[..., order, :], valid[order]
+    lanes = p_all.shape[0] if p_all.ndim == 3 else 1
+    pq, F, c = prepare_correspondences(p_all.reshape(lanes, -1, 3), q_all.reshape(lanes, -1, 3))
     return (p_all, q_all, valid, int(torch.sum(valid)), pq, F.contiguous(), c.contiguous(),
-            valid[None].contiguous())
+            valid.expand(lanes, -1).contiguous())
 
 
 def _correspondence_rmse(T, p_all, q_all, valid, thresh_sq: float) -> torch.Tensor:
-    """Inlier RMSE of T over the correspondence set."""
-    moved = p_all @ T[:3, :3].T + T[:3, 3]
-    d2 = torch.sum((moved - q_all) ** 2, dim=1)
+    """Inlier RMSE of each T [..., 4, 4] over its correspondence set."""
+    moved = p_all @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+    d2 = torch.sum((moved - q_all) ** 2, dim=-1)
     inl = (d2 < thresh_sq) & valid
-    return torch.sqrt(torch.sum(torch.where(inl, d2, 0.0)) / torch.clamp_min(torch.sum(inl), 1))
+    return torch.sqrt(torch.sum(torch.where(inl, d2, 0.0), dim=-1)
+                      / torch.clamp_min(torch.sum(inl, dim=-1), 1))
 
 
 def ransac_from_correspondences(
@@ -170,69 +177,92 @@ def ransac_two_mode(
     """Batched RANSAC tracking the best TWO rotationally distinct modes.
 
     Args:
-      p_all, q_all: [M, 3] correspondence points; valid: [M] bool.
+      p_all, q_all: [M, 3] correspondence points, or [R, M, 3]: R restarts,
+        each its own RANSAC (its own bits and confidence stop) on its own
+        correspondences under the one mask, run as lanes of one loop with
+        one host read a chunk.
+      valid: [M] bool.
       sample_bits: [n_chunks_max, batch_size, 2] int64 of uint32 values, chunk
-        i's bits at [i] (``chunk_count`` gives n_chunks_max); drawn from
-        ``generator`` when None.
+        i's bits at [i] (``chunk_count`` gives n_chunks_max; [R, ...] for R
+        restarts, restart r's at [r]); drawn from ``generator`` when None.
 
-    Returns (primary, secondary) RegistrationResults; ``iterations`` counts
-    the hypotheses evaluated, early stop included.
+    Returns (primary, secondary) RegistrationResults, each field with a
+    leading [R] for R restarts; ``iterations`` counts the hypotheses
+    evaluated, early stop included.
     """
     dev = p_all.device
     thresh_sq = f32_square(dist_thresh)
     conf = np.float32(confidence)
     cos_thr = f32_cos_deg(mode_angle_deg)
     n_chunks = chunk_count(max_iterations, batch_size)
-    sample_bits = _checked_chunk_bits(sample_bits, n_chunks, batch_size, generator)
+    lead = tuple(p_all.shape[:-2])
+    sample_bits = _checked_chunk_bits(sample_bits, n_chunks, batch_size, generator, lead)
     p_all, q_all, valid, n_valid, pq, F, c, valid1 = _compacted(p_all, q_all, valid)
+    lanes = pq.shape[0]
+    sample_bits = sample_bits.reshape(lanes, *sample_bits.shape[-3:])
 
     def rot_close(Ta, Tb):
-        cosang = (torch.trace(Ta[:3, :3].T @ Tb[:3, :3]) - 1.0) * 0.5
+        rel = Ta[..., :3, :3].transpose(-1, -2) @ Tb[..., :3, :3]
+        cosang = (torch.diagonal(rel, dim1=-2, dim2=-1).sum(dim=-1) - 1.0) * 0.5
         return cosang >= cos_thr
 
     def merge(T1, c1, T2, c2, Tc, cc):
-        """Fold candidate (Tc, cc) into the two mode slots: a better candidate
-        takes slot 1; near1 only gates slot 2."""
-        near1 = rot_close(T1, Tc)
-        T1n = torch.where(cc > c1, Tc, T1)
+        """Fold candidate (Tc, cc) into the two mode slots of each lane: a
+        better candidate takes slot 1; near1 only gates slot 2."""
+        near1, up1, up2 = rot_close(T1, Tc), cc > c1, cc > c2
+        T1n = torch.where(up1[:, None, None], Tc, T1)
         c1n = torch.maximum(cc, c1)
-        far_T2 = torch.where(cc > c1, T1, torch.where(cc > c2, Tc, T2))
-        far_c2 = torch.where(cc > c1, c1, torch.maximum(cc, c2))
-        return T1n, c1n, torch.where(near1, T2, far_T2), torch.where(near1, c2, far_c2)
+        far_T2 = torch.where(up1[:, None, None], T1, torch.where(up2[:, None, None], Tc, T2))
+        far_c2 = torch.where(up1, c1, torch.maximum(cc, c2))
+        return (T1n, c1n, torch.where(near1[:, None, None], T2, far_T2),
+                torch.where(near1, c2, far_c2))
 
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    neg = torch.tensor(-1, dtype=torch.int32, device=dev)
-    T1, c1, T2, c2 = eye, neg, eye, neg
+    def runs(c1_host: int, chunk_i: int) -> bool:
+        return chunk_i < n_chunks and chunk_i * batch_size < _required_iters(
+            c1_host, n_valid, conf, max_iterations)
+
+    eye = torch.eye(4, dtype=torch.float32, device=dev).expand(lanes, 4, 4)
+    neg = torch.full((lanes,), -1, dtype=torch.int32, device=dev)
+    slots = (eye, neg, eye, neg)
+    chunks = [0] * lanes  # the chunks each lane ran
+    running = [runs(-1, 0)] * lanes
     chunk_i = 0
-    c1_host = -1
-    while chunk_i < n_chunks and chunk_i * batch_size < _required_iters(
-        c1_host, n_valid, conf, max_iterations
-    ):
-        bits = sample_bits[chunk_i].to(device=dev, dtype=torch.int64)
+    while any(running):
+        bits = sample_bits[:, chunk_i].to(device=dev, dtype=torch.int64)
         triples = sample_distinct_triples(bits, n_valid)
         R, t, counts = sample_fit_score(
-            pq, F, c, valid1, triples[None], thresh_sq,
+            pq, F, c, valid1, triples, thresh_sq,
             edge_length_ratio=edge_length_ratio, use_checkers=use_checkers,
         )
         ka = torch.argmax(counts, dim=-1)
-        Ta, ca = winner_T(R, t, ka)[0], counts[0, ka[0]]
-        counts_far = torch.where(rot_cos_planar(Ta[None], R) < cos_thr, counts, -1)
+        Ta, ca = winner_T(R, t, ka), torch.gather(counts, -1, ka[:, None])[:, 0]
+        counts_far = torch.where(rot_cos_planar(Ta, R) < cos_thr, counts, -1)
         kb = torch.argmax(counts_far, dim=-1)
-        Tb, cb = winner_T(R, t, kb)[0], counts_far[0, kb[0]]
-        T1, c1, T2, c2 = merge(T1, c1, T2, c2, Ta, ca)
-        T1, c1, T2, c2 = merge(T1, c1, T2, c2, Tb, cb)
+        Tb, cb = winner_T(R, t, kb), torch.gather(counts_far, -1, kb[:, None])[:, 0]
+        new = merge(*merge(*slots, Ta, ca), Tb, cb)
+        if all(running):
+            slots = new
+        else:  # a lane that has stopped keeps its slots
+            live = torch.tensor(running, device=dev)
+            slots = tuple(torch.where(live.reshape(-1, *[1] * (a.ndim - 1)), a, b)
+                          for a, b in zip(new, slots))
         chunk_i += 1
-        c1_host = int(c1)
+        chunks = [k + r for k, r in zip(chunks, running)]
+        c1_host = slots[1].tolist()
+        running = [r and runs(h, chunk_i) for r, h in zip(running, c1_host)]
+
+    iterations = torch.tensor(chunks, dtype=torch.int32).reshape(lead) * batch_size
 
     def result(T, cnt):
-        cnt = torch.clamp_min(cnt, 0)
+        T, cnt = T.reshape(*lead, 4, 4), torch.clamp_min(cnt, 0).reshape(lead)
         return RegistrationResult(
             transformation=T,
             fitness=cnt.to(torch.float32) / float(max(n_valid, 1)),
             inlier_rmse=_correspondence_rmse(T, p_all, q_all, valid, thresh_sq),
-            iterations=torch.tensor(chunk_i * batch_size, dtype=torch.int32),
+            iterations=iterations,
         )
 
+    T1, c1, T2, c2 = slots
     return result(T1, c1), result(T2, c2)
 
 
