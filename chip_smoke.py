@@ -85,9 +85,12 @@ Phases (any failure exits non-zero and prints no ok line):
      capacities match (inside the CPU tests' bounds elsewhere), clouds 0-1
      against the CPU; I2 register_pairs_batched over the 8 pairs tiled to
      2048 (bucket_multiple 256, batch.py's defaults: 4096 hypotheses, 8 ICP
-     iterations / 2 solves a search, bf16 score, values_pk), launch counts
-     zeroed before and read after each bucket (1 lane_mutual, 4
-     lane_nn_smalld, 1 bf16 score), every pair gated, pairs 0-3 against the
+     iterations / 2 solves a search, bf16 score, values_pk): a call that
+     runs each bucket's step eagerly, one that captures it as a CUDA graph
+     (registration/graphs.py), then the counted call, which replays it, with
+     launch counts zeroed before and read after each bucket's step (1
+     lane_mutual, 4 lane_nn_smalld, 1 bf16 score; a replay counts the
+     launches its capture tallied), every pair gated, pairs 0-3 against the
      CPU, pairs 0-7 alone against the whole call, pairs/s (median of 3
      resolved calls), launch against resolve time, peak memory; I3
      register_sources_to_target: 8 moved, re-noised copies of pair 0's
@@ -226,6 +229,7 @@ Phases (any failure exits non-zero and prints no ok line):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -400,6 +404,25 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def step_tally(out: dict):
+    """The batch API's bucket steps in the block, by how they ran (counters
+    of registration/graphs.py): out["eager"], ["captured"], ["replayed"].
+    Records spans and counters meanwhile (utils/profiler.py)."""
+    from tpu3dm_torch.utils.profiler import Profiler
+
+    Profiler.reset()
+    Profiler.enable()
+    try:
+        yield out
+    finally:
+        c = Profiler.counters()
+        Profiler.enable(False)
+        Profiler.reset()
+        out.update(eager=c.get("batch.eager_steps", 0), captured=c.get("batch.graph_captures", 0),
+                   replayed=c.get("batch.graph_replays", 0))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1745,28 +1768,32 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
     def register(pairs_=pairs, **over):
         return batch.register_pairs_batched(pairs_, cfg, **{**kw, **over})
 
-    register()  # warm-up
+    register()  # warm-up: each bucket's step runs eagerly
+    t_capture = synced(register)[1]  # each bucket's step is captured as a CUDA graph
     per_bucket = []
-    step = batch.fused_register_step
+    step = batch._Knobs.step
 
-    def counted_step(*a, **k):  # the launch counts and wall time of one bucket
+    def counted_step(knobs, src, *a, **k):  # the launch counts and wall time of one bucket
+        # Around the whole step, outside any graph capture: a replay's
+        # launches count when it replays (csrc.tallied_launches).
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.time()
-        out = step(*a, **k)
+        out = step(knobs, src, *a, **k)
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
-        per_bucket.append((a[0].shape[1], a[0].shape[0], {n: v.launches for n, v in KERNELS.items()}))
+        per_bucket.append((src[0].shape[1], src[0].shape[0],
+                           {n: v.launches for n, v in KERNELS.items()}))
         return out
 
     step_s = []
 
-    batch.fused_register_step = counted_step
+    batch._Knobs.step = counted_step
     try:
         torch.cuda.reset_peak_memory_stats()
         res, counted_s = synced(register)
     finally:
-        batch.fused_register_step = step
+        batch._Knobs.step = step
     peak = torch.cuda.max_memory_allocated() / 2**30
     for cap, b, counts in per_bucket:
         if any(counts[k] != n for k, n in bucket_expect.items()):
@@ -1817,8 +1844,9 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
         f"search, bf16 score, values_pk): buckets {sizes} (capacity: pairs); each bucket "
         f"launched {bucket_expect}; call {call_s * 1e3:.1f} ms median of 3 -> "
         f"{LANES / call_s:.1f} pairs/s (launch {np.median(launch_only) * 1e3:.1f} ms, resolve "
-        f"{np.median(resolve_only) * 1e3:.1f} ms; counted call {counted_s * 1e3:.1f} ms, of "
-        f"which the buckets' steps {' + '.join(f'{t * 1e3:.1f}' for t in step_s)} ms); peak "
+        f"{np.median(resolve_only) * 1e3:.1f} ms; the capturing call {t_capture * 1e3:.1f} ms; "
+        f"counted call {counted_s * 1e3:.1f} ms, of which the buckets' replayed steps "
+        f"{' + '.join(f'{t * 1e3:.1f}' for t in step_s)} ms); peak "
         f"memory {peak:.2f} GiB; {worst}, fitness min {res.ransac_fitness.min():.3f}; pairs 0-3 "
         f"vs CPU: {ref}; pairs 0-7 alone vs in the call: max |T difference| {mates_gap:.3g}")
     profile_report(register, "path I2")
@@ -1983,8 +2011,9 @@ def stream_paths(dev, cfg) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.time()
-        res = run(STREAM_PAIRS, STREAM_WINDOW)
-        torch.cuda.synchronize()
+        with step_tally({}) as steps:
+            res = run(STREAM_PAIRS, STREAM_WINDOW)
+            torch.cuda.synchronize()
         wall = time.time() - t0
         counts = {k: v.launches for k, v in KERNELS.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2017,7 +2046,8 @@ def stream_paths(dev, cfg) -> dict:
             f"initialisation where no earlier phase paid them; no compile), fresh "
             f"{res.fresh_pairs_per_sec:.2f} pairs/s over {res.total_seconds:.2f} s; retry: "
             f"{len(res.retry_pairs)} pairs in {res.retry_seconds:.2f} s; peak memory "
-            f"{peak:.2f} GiB; launches { {k: v for k, v in counts.items() if v} }")
+            f"{peak:.2f} GiB; launches { {k: v for k, v in counts.items() if v} }; batch API "
+            f"bucket steps {steps} (spans and counters recorded)")
         log(f"  stream_quality: {json.dumps(q)}")
         log("  per family (worst rot deg, worst alignment RMSE, pairs over 2 deg, retried): "
             + "; ".join(f"{f} {v[0]:.4f} / {v[1]:.5f} / {v[2]} / {v[3]}"
@@ -2056,12 +2086,13 @@ def stream_paths(dev, cfg) -> dict:
             fail(f"path S2: {len(bad)} pairs differ from S1 by more than 1e-6")
 
         # --- S3: the generic path ------------------------------------------------
-        generic = run(STREAM_GENERIC_PAIRS, STREAM_WINDOW, fuse_device=False)
+        with step_tally({}) as steps3:
+            generic = run(STREAM_GENERIC_PAIRS, STREAM_WINDOW, fuse_device=False)
         rot3, t3 = apart(torch.from_numpy(generic.transforms),
                          torch.from_numpy(res.transforms[:STREAM_GENERIC_PAIRS]))
         log(f"path S3 (the first {STREAM_GENERIC_PAIRS} pairs, fuse_device=False: kNN features, "
-            f"capacity buckets {sorted(set(generic.bucket_of_pair))}): vs S1 rot {rot3:.4f} deg, "
-            f"t {t3:.3g} (limits 0.5, 0.02)")
+            f"capacity buckets {sorted(set(generic.bucket_of_pair))}, batch API bucket steps "
+            f"{steps3}): vs S1 rot {rot3:.4f} deg, t {t3:.3g} (limits 0.5, 0.02)")
         if rot3 >= 0.5 or t3 >= 0.02:
             g_rot, _ = fused_gate(torch.from_numpy(generic.transforms),
                                   np.stack(trues[:STREAM_GENERIC_PAIRS]),
@@ -2253,10 +2284,11 @@ def serve_paths(dev, cfg) -> dict:
                 t0 = time.time()
                 threads = [threading.Thread(target=client, args=(c,))
                            for c in range(SERVE_CLIENTS)]
-                for th in threads:
-                    th.start()
-                for th in threads:
-                    th.join(timeout=900)
+                with step_tally({}) as steps:
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(timeout=900)
                 wall = time.time() - t0
                 counts = {k: v.launches for k, v in KERNELS.items()}
                 st = server.engine.stats()
@@ -2282,7 +2314,8 @@ def serve_paths(dev, cfg) -> dict:
                 f"mean size {st['mean_batch_size']:.2f}, max {st['max_batch_size']}; buckets "
                 f"{st['buckets']}; shared-target requests {st['shared_target_requests']}; cloud "
                 f"cache {cache}; launches a micro-batch "
-                f"{ {k: round(counts[k] / n_b, 2) for k in SERVE_KERNELS} }; {worst}")
+                f"{ {k: round(counts[k] / n_b, 2) for k in SERVE_KERNELS} }; bucket steps "
+                f"{steps} (spans and counters recorded); {worst}")
             return counts
 
         counts0 = flood(0)

@@ -266,6 +266,7 @@ def test_batched_call_spans_counters_and_bits(mixed_pairs, rescue_restarts):
         "batch.rows_valid": sum(min(a, c) + min(b, c) for (a, b), c in zip(n_valid, caps)),
         "batch.rows_padded": sum(2 * c for c in caps),
         "batch.pack_syncs": 1,
+        "batch.eager_steps": n_buckets,  # the CPU steps are never graphs
     }
 
 

@@ -20,11 +20,14 @@ stream's producer and consumer) build it once and load it once.
 
 A :class:`Kernel` is one C entry point.  Its ``launches`` counter goes up by
 one each time a wrapper launches it, so a run can show that its path went
-through the kernel.
+through the kernel.  A CUDA graph capture calls the wrappers without running
+the kernels: inside ``tallied_launches()`` a thread's launches go into a
+tally instead, which each replay of the graph adds (``add_launch_counts``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,6 +58,7 @@ FLOAT = ctypes.c_float
 KERNELS: dict[str, Kernel] = {}
 # Held around build() and every first load; reentrant, since a load builds.
 _BUILD_LOCK = threading.RLock()
+_THREAD = threading.local()  # .tally: this thread's launches inside tallied_launches()
 
 
 def _nvcc() -> str:
@@ -169,12 +173,35 @@ class Kernel:
                 rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
-        self.launches += 1
+        tally = getattr(_THREAD, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self.name] = tally.get(self.name, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def tallied_launches():
+    """Yield a dict that takes this thread's launches inside the block, by
+    kernel name, in place of the kernels' ``launches``: a graph capture's,
+    whose kernels run only when the graph replays."""
+    outer = getattr(_THREAD, "tally", None)
+    _THREAD.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _THREAD.tally = outer
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add a tally of launches (``tallied_launches``) to the kernels' counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 _host_lib: ctypes.CDLL | None = None

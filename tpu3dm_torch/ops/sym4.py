@@ -24,16 +24,19 @@ def _trace(M: torch.Tensor) -> torch.Tensor:
     return chain_sum(torch.diagonal(M, dim1=-2, dim2=-1))
 
 
-def _det3(M: torch.Tensor) -> torch.Tensor:
-    return (
-        M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
-        - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
-        + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0])
-    )
-
-
 def _minor(A: torch.Tensor, rows, cols) -> torch.Tensor:
-    return _det3(A[..., list(rows), :][..., :, list(cols)])
+    """Determinant of A's 3x3 submatrix at ``rows`` x ``cols``, read through
+    views of A's entries: no index tensor is made on the host, so a CUDA
+    graph can capture it."""
+
+    def M(i, j):
+        return A[..., rows[i], cols[j]]
+
+    return (
+        M(0, 0) * (M(1, 1) * M(2, 2) - M(1, 2) * M(2, 1))
+        - M(0, 1) * (M(1, 0) * M(2, 2) - M(1, 2) * M(2, 0))
+        + M(0, 2) * (M(1, 0) * M(2, 1) - M(1, 1) * M(2, 0))
+    )
 
 
 def _det4(A: torch.Tensor) -> torch.Tensor:
@@ -75,5 +78,5 @@ def dominant_eigvec_sym4(N: torch.Tensor) -> torch.Tensor:
     v = torch.gather(adj_cols, -1, best[..., None, None].expand(best.shape + (4, 1)))[..., 0]
     norm = torch.sqrt(chain_sum(v * v))[..., None]
     ok = norm > 1e-20
-    fallback = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=N.dtype, device=N.device)
+    fallback = torch.eye(4, dtype=N.dtype, device=N.device)[0]  # (1, 0, 0, 0), made on the device
     return torch.where(ok, v / torch.where(ok, norm, 1.0), fallback)

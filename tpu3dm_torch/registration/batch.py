@@ -15,7 +15,9 @@ batch API instead
      and device among the lanes, whatever the bucket's pair count,
   4. runs each bucket as one ``fused_register_step`` call, with the knobs
      JAX's ``_batched_step`` passes (``ransac_batch=min(iterations, 4096)``,
-     ``approx_features=False``, the default ``nn_impl="values_pk"``),
+     ``approx_features=False``, the default ``nn_impl="values_pk"``); on
+     CUDA a bucket shape seen before replays a CUDA graph of that step
+     (``registration/graphs.py``), with the eager step's answers,
   5. returns per-pair results in input order (``PendingBatch.resolve``),
      writing checkpoint records and restoring the pairs a store already
      holds without dispatching them.
@@ -48,7 +50,10 @@ registers), ``batch.rows_valid`` and ``batch.rows_padded`` (each pair's
 valid source and target rows up to the bucket's capacity, and twice the
 capacity).  Counter a read: ``batch.pack_syncs``, the packing's reads of
 tensor values to the host (one a call for the valid-row counts, and one
-for each copy of rows from a card to a run on the CPU).
+for each copy of rows from a card to a run on the CPU).  Each bucket's step
+counts once into ``batch.graph_replays``, ``batch.graph_captures`` or
+``batch.eager_steps``, and a replay runs under ``batch.graph``
+(``registration/graphs.py``).
 
 One deliberate departure from JAX: no power-of-two padding of a bucket's
 pair axis.  JAX pads it so that repeated calls reuse a few compiled
@@ -73,7 +78,12 @@ from tpu3dm_torch.parallel.multipair import chunk_bits_shape, draw_bits, extra_c
 from tpu3dm_torch.parallel.register import batched_register
 from tpu3dm_torch.preprocess.pipeline import ProcessedCloud
 from tpu3dm_torch.registration.fused import fused_register_step
+from tpu3dm_torch.registration.graphs import StepGraphs
 from tpu3dm_torch.utils.profiler import Profiler, new_call_id, recording
+
+
+# The fused step's CUDA graphs, shared by every call of the process.
+_STEP_GRAPHS = StepGraphs()
 
 
 @dataclasses.dataclass
@@ -174,7 +184,9 @@ class _Knobs:
     def step(self, src, tgt, bits, extra, dev, mesh=None):
         """One bucket: src = (points, features, mask), tgt = (points,
         features, mask, normals), each [b, cap, ...]; with a mesh, b is a
-        multiple of its pair axis."""
+        multiple of its pair axis.  On CUDA, without a mesh or the adaptive
+        budget, a bucket shape that recurs replays a CUDA graph of the step
+        (``graphs.StepGraphs``)."""
         kw = dict(
             dist_thresh=self.dist_thresh,
             icp_thresh=self.icp_thresh,
@@ -189,9 +201,19 @@ class _Knobs:
             adapt_iterations=self.adapt_iterations,
         )
         if mesh is not None:
+            Profiler.count("batch.eager_steps", 1)
             return batched_register(mesh, *src, None, *tgt, bits, extra_bits=extra, **kw)
-        return fused_register_step(*src, None, *tgt, bits, extra_bits=extra, device=dev,
-                                   ransac_batch=min(self.ransac_iterations, 4096), **kw)
+
+        def run(sp, sf, sm, tp, tf, tm, tn, b):
+            return fused_register_step(sp, sf, sm, None, tp, tf, tm, tn, b, extra_bits=extra,
+                                       device=dev, ransac_batch=min(self.ransac_iterations, 4096),
+                                       **kw)
+
+        inputs = (*src, *tgt, bits)
+        if dev.type != "cuda" or self.adapt_iterations > 0:
+            Profiler.count("batch.eager_steps", 1)
+            return run(*inputs)
+        return _STEP_GRAPHS.run(dev, self, inputs, run)
 
 
 class _PairBits:
@@ -266,9 +288,10 @@ class PendingBatch:
 
     ``launch_*`` packs and dispatches every bucket and returns this; the
     bucket outputs stay device tensors until ``resolve()`` copies them to
-    the host and folds them back into input order.  (The fused step syncs
-    with the host inside, so a launch returns when its buckets have been
-    queued to the end of their last host sync.)
+    the host and folds them back into input order.  (An eager step may
+    sync with the host inside, so a launch returns when its buckets have
+    been queued to the end of their last host sync; a replayed step is
+    queued whole.)
     """
 
     def __init__(self, n: int, launched: list, done: dict, checkpoint=None, pair_names=None,

@@ -30,6 +30,7 @@ from tpu3dm_torch.core.cloud import PointCloud
 from tpu3dm_torch.core.config import IcpConfig
 from tpu3dm_torch.ops.nn import nn_search
 from tpu3dm_torch.parallel.multipair import f32_square
+from tpu3dm_torch.registration.graphs import capture_graph
 from tpu3dm_torch.registration.result import RegistrationResult
 
 
@@ -80,16 +81,12 @@ def _capture(body, state: tuple) -> tuple:
     pool, stream, _ = _GRAPHS.get(key) or (torch.cuda.graph_pool_handle(),
                                             torch.cuda.Stream(dev), None)
     static = tuple(t.clone() for t in state)
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            for dst, src in zip(static, body(*static)):
-                dst.copy_(src)
-        finally:
-            graph.capture_end()
-    torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def advance(*state):
+        for dst, src in zip(state, body(*state)):
+            dst.copy_(src)
+
+    graph, _ = capture_graph(advance, static, pool, stream)
     # The older graph is never replayed again; dropping it leaves the pool to
     # this one.
     _GRAPHS[key] = (pool, stream, graph)

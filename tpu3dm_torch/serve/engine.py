@@ -23,7 +23,8 @@ Departures from JAX, each forced by eager PyTorch on one card:
     ``pipeline_depth=1`` overlaps only the next micro-batch's host pack with
     this one's device tail and copy-out.
   - ``prewarm`` has no compile to pay: it builds the kernels (csrc) and runs
-    each (capacity, batch, route) shape once.
+    each (capacity, batch, route) shape once, and on one card a second time
+    to capture the batch API's CUDA graph of it (registration/graphs.py).
   - ``fence_uploads`` synchronizes the engine's CUDA stream.
 
 With a ``mesh`` every micro-batch goes through ``launch_pairs_batched(mesh=
@@ -301,9 +302,12 @@ class ServeEngine:
 
     def prewarm(self, caps: list[int] | None = None, batch_sizes: list[int] | None = None, *,
                 shared_target: bool = True, parallel: int = 4) -> float:
-        """Build the kernels and run each (cap, batch size, route) shape once
+        """Build the kernels and run each (cap, batch size, route) shape
         before traffic arrives, through the launch functions the dispatcher
-        uses, so the first request pays no build or first-use cost.
+        uses, so the first request pays no build, first-use or capture cost:
+        on CUDA without a mesh each shape runs twice, and the second run
+        captures the batch API's graph of it, which every thread then
+        replays (``registration/graphs.py``).
 
         Defaults: one bucket (``bucket_multiple``) at ``max_batch`` pairs.
         ``parallel`` > 1 runs the shapes from a thread pool (the kernels'
@@ -320,6 +324,7 @@ class ServeEngine:
         caps = caps or [s.bucket_multiple]
         batch_sizes = batch_sizes or [s.max_batch]
         kw = self._launch_kwargs()
+        runs = 2 if self.device.type == "cuda" and self.mesh is None else 1
         thunks = []
         for cap in caps:
             cloud = _synthetic_processed(cap, self.device)
@@ -328,9 +333,10 @@ class ServeEngine:
                         for i in range(b)]
 
                 def pair_thunk(cloud=cloud, b=b, bits=bits):
-                    _batch.launch_pairs_batched(
-                        [(cloud, cloud)] * b, self.pipeline, device=self.device,
-                        mesh=self.mesh, **self._bits_kwargs(bits), **kw).resolve()
+                    for _ in range(runs):
+                        _batch.launch_pairs_batched(
+                            [(cloud, cloud)] * b, self.pipeline, device=self.device,
+                            mesh=self.mesh, **self._bits_kwargs(bits), **kw).resolve()
 
                 thunks.append(pair_thunk)
                 if shared_target and s.target_resident_min > 0 and self.mesh is None:
@@ -338,9 +344,10 @@ class ServeEngine:
                     def shared_thunk(cloud=cloud, b=b, bits=bits):
                         rt = _batch.ResidentTarget(cloud, max_caps=s.resident_caps_max,
                                                    device=self.device)
-                        _batch.launch_sources_to_target(
-                            [cloud] * b, rt, self.pipeline, **self._bits_kwargs(bits),
-                            **kw).resolve()
+                        for _ in range(runs):
+                            _batch.launch_sources_to_target(
+                                [cloud] * b, rt, self.pipeline, **self._bits_kwargs(bits),
+                                **kw).resolve()
 
                     thunks.append(shared_thunk)
         if parallel > 1 and len(thunks) > 1:
