@@ -41,11 +41,10 @@ Phases (any failure exits non-zero and prints no ok line):
      after (2 lane_nn_smalld, 1 lane_mutual, 1 bf16 score); every lane
      gated (rotation < 2 deg, RMSE < 0.1 against its T_true); 4 lanes
      checked against the same step on the CPU; pairs/s and stage times;
-  6. one profiled step: the device's busy and idle share, ops by name;
   6b. path C: the same step with mutual_filter=False and the batched alias
      rescue (3 restarts, 6 modes, 8 verification solves), launch counts
      zeroed just before and read just after, every lane gated, lanes 0-3
-     against the CPU, pairs/s, stage times, peak memory, one profiled step;
+     against the CPU, pairs/s, stage times, peak memory;
      path D: the rescue with the mutual filter, gated and timed once;
   6c. path E, the new main path: fused_register_step over the same 2048
      lanes at bench.py's settings (the default nn_impl "values_pk": bf16
@@ -53,7 +52,7 @@ Phases (any failure exits non-zero and prints no ok line):
      hypotheses, 8 ICP iterations / 4 solves a search), launch counts zeroed
      just before and read just after (1 lane_mutual, 2 lane_nn_smalld, 1 bf16
      score), every lane gated, lanes 0-3 against the CPU, pairs/s (median of
-     3), stages, peak memory, one profiled step;
+     3), stages, peak memory;
      path F, batch.py's options on the same lanes, each step counted and
      gated: F1 two-stage scoring (score_subset=256, rescore_top=128: the bf16
      score at the subset shape, then the fp32 route at [2048, 128, 1024]),
@@ -116,7 +115,7 @@ Phases (any failure exits non-zero and prints no ok line):
      within 0.5 deg and 0.02 of S1; S4 pairs 0-2 on the CPU with the same
      bits, within the CPU agreement limit; S5 window 1's 256 clouds: batched
      dense features equal to per-cloud ones bit for bit, both timed; then
-     measure_fused_device_rate and one profiled window;
+     measure_fused_device_rate;
   6g. path V, the serving tier (serve/): a RegistrationServer on loopback
      port 0 at ServeConfig() on the card, prewarmed at caps 768 and 1024,
      takes 512 requests from 8 client threads (half inline base64 pairs of
@@ -126,9 +125,8 @@ Phases (any failure exits non-zero and prints no ok line):
      latency p50 / p95, queue / pack / device ms, micro-batch size,
      shared-target requests and launches a micro-batch (kernels 1, 2, the
      bf16 score and row_sums > 0 required); the engine alone on the same
-     requests (8 waiting clients, then all at once) and one profiled
-     micro-batch; request 0 alone bit-equal to request 0 of a 128-request
-     flood; Q2 64 of the flood's requests through ServeEngine(mesh=4x1),
+     requests (8 waiting clients, then all at once); request 0 alone
+     bit-equal to request 0 of a 128-request flood; Q2 64 of the flood's requests through ServeEngine(mesh=4x1),
      counted, none on the resident route, every response ok and gated, the
      inline requests bit-equal to the same requests without the mesh;
   6h. path P, the single-pair pipeline: register_files on pair 0's two
@@ -152,7 +150,7 @@ Phases (any failure exits non-zero and prints no ok line):
      CPU, the pose graph solved on the CPU from the card's edges against
      the card's poses, edge 0 alone bit-equal to edge 0 in its chunk, the
      warm calls bit-equal; M2 the same on the first 16 views (the dense
-     jacfwd solve), every pose gated too, one profiled call; M3
+     jacfwd solve), every pose gated too; M3
      register_multiway on 4 views with full-resolution normals into a
      checkpoint directory, one edge record deleted, run again, bit-equal
      (the fp32 score and kernel 4 > 0 required); Q2 M1's call again over
@@ -187,9 +185,11 @@ Phases (any failure exits non-zero and prints no ok line):
   7. the large-cloud path, register_arrays_large on make_benchmark_pair(
      1_000_000, seed=0, sigma=0.002) (bench.py's large phase): path A at
      voxel 0.3, path B at voxel 0.1, each twice (cold, warm) with the launch
-     counts zeroed just before and read just after each call, each call
+     counts zeroed just before and read just after each call (the ICPs'
+     graph replays counted: one nn_blocksparse a full-resolution ICP
+     iteration, and one for the grading pass), each call
      gated as bench.py gates it (rotation < 2 deg, alignment RMSE < 0.01
-     against T_true), then once more stage by stage; one profiled call of A;
+     against T_true), then once more stage by stage;
   7b. Q3 ring_nn_search on a 1x4 block mesh on the card: d = 3 on path A's
      1,000,448-row clouds (kernel 4 in each of the 16 ring steps) and d = 33
      on 32,768 random features with 5% of the rows masked (kernel 5), each
@@ -475,42 +475,6 @@ def apart(Ta, Tb):
     fro = np.linalg.norm(Ta[:, :3, :3] - Tb[:, :3, :3], axis=(1, 2))
     rot = np.degrees(2 * np.arcsin(np.clip(fro / (2 * np.sqrt(2)), 0, 1)))
     return float(rot.max()), float(np.abs(Ta[:, :3, 3] - Tb[:, :3, 3]).max())
-
-
-def profile_report(fn, label: str) -> None:
-    """One profiled call of ``fn`` (torch.profiler): device busy and idle share
-    of its device span, and the device ops that take the time, by name: the
-    top 12 and every kernel of the port's own."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        log(f"profile {label}: the profiler recorded no device ops; busy share not measured")
-        return
-    busy, cur_s, cur_e, by_name = 0.0, spans[0][0], spans[0][1], {}
-    for s0, s1, name in spans:
-        by_name[name] = by_name.get(name, 0.0) + (s1 - s0)
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, s1
-        else:
-            cur_e = max(cur_e, s1)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    # The top 12, then the port's own kernels below them (csrc's __global__
-    # functions all live in anonymous namespaces).
-    shown = ranked[:12] + [kv for kv in ranked[12:] if kv[0].startswith("(anonymous namespace)::")]
-    log(f"profile {label}: {len(spans)} device ops over a {span / 1e3:.2f} ms device span, "
-        f"busy {busy / 1e3:.2f} ms ({busy / span:.1%}), idle {1 - busy / span:.1%}")
-    for name, us in shown:
-        log(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
 
 
 def main() -> int:
@@ -979,10 +943,6 @@ def main() -> int:
         f"fitness min {fit.min().item():.3f}, icp rmse max {rmse.max().item():.4f}; "
         f"lanes 0-3 vs CPU: rot {ref_rot:.4f} deg, t {ref_t:.3g}; launches {launches}")
 
-    # Device timeline of one step (torch.profiler): busy share, and the device
-    # ops that take the time, summed by name.
-    profile_report(run_step, "main path")
-
     # --- 6b. paths C and D: the batched alias rescue -------------------------
     torch.cuda.empty_cache()
     rescue_launches = rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s)
@@ -1161,7 +1121,7 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
     with the batched alias rescue over the LANES lanes: launch counts zeroed
     just before each path's counted call and read just after, every lane
     gated.  Path C is also checked against the CPU on lanes 0-3, timed,
-    staged and profiled; D is timed once.  Returns {"C": counts, "D": counts}."""
+    and staged; D is timed once.  Returns {"C": counts, "D": counts}."""
     import torch
 
     from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
@@ -1263,7 +1223,6 @@ def rescue_paths(run_step, src, tgt, T_true, mu, M2, cfg, m_s) -> dict:
             f"{stages[0]:.1f}, RANSAC restarts {stages[1]:.1f}, dedup + verification + election "
             f"{stages[2]:.1f}, ICP polish {stages[3]:.1f}; lanes 0-3 vs CPU: rot "
             f"{ref_rot:.4f} deg, t {ref_t:.3g}")
-        profile_report(lambda: step(mutual), f"path {name}")
     return out
 
 
@@ -1422,7 +1381,6 @@ def values_paths(src, tgt, T_true, mu, M2, cfg, step_kw, bits) -> tuple[dict, ob
         f"memory {peak:.2f} GiB; {worst}, fitness min {fit.min().item():.3f}, icp rmse max "
         f"{rmse.max().item():.4f}; lanes 0-3 vs CPU: {ref}; launches "
         f"{ {k: v for k, v in counts.items() if v} }")
-    profile_report(step, "path E")
 
     gen = torch.Generator().manual_seed(5)
     m_s = bits.shape[-1]
@@ -1849,7 +1807,6 @@ def batch_paths(dev, cfg, clouds, trues, moments) -> dict:
         f"{' + '.join(f'{t * 1e3:.1f}' for t in step_s)} ms); peak "
         f"memory {peak:.2f} GiB; {worst}, fitness min {res.ransac_fitness.min():.3f}; pairs 0-3 "
         f"vs CPU: {ref}; pairs 0-7 alone vs in the call: max |T difference| {mates_gap:.3g}")
-    profile_report(register, "path I2")
     out = {"I": total, "Q2I": q_counts}
 
     # --- I3: many sources against one resident target ----------------------------
@@ -2161,17 +2118,13 @@ def stream_paths(dev, cfg) -> dict:
             fail(f"path S5: {len(pts) - equal} clouds' batched dense features differ from "
                  f"per-cloud ones (largest difference {diff:.3g})")
 
-        # --- the device-only rate and one profiled window --------------------------
+        # --- the device-only rate ---------------------------------------------------
         rate = stream.measure_fused_device_rate(
             cfg, window=STREAM_WINDOW, down_cap=STREAM_CAP, ransac_iterations=HYPOTHESES,
             icp_iterations=ICP_ITERS, icp_solves_per_nn=ICP_SOLVES_PER_NN, approx_score=True,
             rescue_restarts=RESCUE_RESTARTS, device=dev)
         log(f"path S measure_fused_device_rate (window {STREAM_WINDOW} of random clouds on the "
             f"device, features + fused step, median of 3): {rate:.2f} pairs/s")
-        step = stream._FusedWindow(cfg, HYPOTHESES, ICP_ITERS, ICP_SOLVES_PER_NN, True,
-                                   RESCUE_RESTARTS, rescue_modes=RESCUE_MODES,
-                                   sample_mode="roll", dense_features=True)
-        profile_report(lambda: step(pts_d, masks_d, bits[:STREAM_WINDOW], dev), "path S window 1")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"S": counts}
@@ -2355,8 +2308,7 @@ def serve_paths(dev, cfg) -> dict:
         f"bit for bit")
     # The engine alone on the flood's workload, its clouds preprocessed once:
     # SERVE_CLIENTS threads each waiting for its request before sending the
-    # next (as the clients do), then all SERVE_REQUESTS submitted at once; and
-    # one profiled micro-batch of SERVE_CLIENTS requests.
+    # next (as the clients do), then all SERVE_REQUESTS submitted at once.
     work = [flood_pairs[i % SERVE_FLOOD] if i % 2 == 0 else
             tuple(dataclasses.replace(c) for c in flood_pairs[i % SERVE_FLOOD])
             for i in range(SERVE_REQUESTS)]
@@ -2379,10 +2331,6 @@ def serve_paths(dev, cfg) -> dict:
                     f.result(timeout=600)
             wall = time.time() - t0
             st = eng.stats()
-            if mode == "clients":
-                profile_report(lambda eng=eng: [f.result(timeout=600) for f in [
-                    eng.submit(*w) for w in work[:SERVE_CLIENTS]]],
-                    f"path V engine, one micro-batch of {SERVE_CLIENTS}")
         log(f"path V engine alone ({mode}, {SERVE_REQUESTS} preprocessed requests): {wall:.2f} s "
             f"-> {SERVE_REQUESTS / wall:.1f} req/s; latency p50 {st['latency_ms']['p50']:.1f} "
             f"ms; pack p50 {st['pack_ms_per_batch']['p50']:.1f} ms, device p50 "
@@ -2679,7 +2627,7 @@ def multiway_paths(dev, cfg) -> dict:
     run_multiway_benchmark(256)'s shape (MULTIWAY_CLOUDS views of a
     20k-point arch, preprocess_points_batch(full_normals=False) at voxel
     0.3, the edgewise pose graph); M2: its first MULTIWAY_SMALL views (the
-    dense jacfwd solve), poses gated too, one profiled call; M3:
+    dense jacfwd solve), poses gated too; M3:
     ``register_multiway`` on RESUME_CLOUDS views with full-resolution
     normals into a checkpoint directory, one edge record deleted, run
     again: bit-equal.  Q2: M1's call again over a 4x1 mesh.  Returns {"M1",
@@ -2706,9 +2654,6 @@ def multiway_paths(dev, cfg) -> dict:
         out.update(multiway_case(label, clouds, trues[:n], dev, cfg, gate_poses=label == "M2",
                                  mesh_check=label == "M1"))
         torch.cuda.empty_cache()
-    profile_report(lambda: posegraph.register_multiway_batched(
-        clouds, cfg, device=dev, rescue_restarts=MULTIWAY_RESCUE,
-        robust_delta=MULTIWAY_ROBUST), "path M2")
 
     fulls = preprocess_points_batch(views[:RESUME_CLOUDS], cfg.preprocess, full_normals=True,
                                     device=dev)
@@ -3628,6 +3573,11 @@ def large_phases(dev, results: dict) -> dict:
                     fail(f"path {name} launched kernel {k} no time")
             if counts["ransac_score_bf16"]:
                 fail(f"path {name} launched the bf16 score: its RANSAC scores fp32 features")
+            # One block-sparse search a pass of the full-resolution ICP, its
+            # graph's replays counted: each iteration and the grading pass.
+            if counts["nn_blocksparse"] != int(fine.iterations) + 1:
+                fail(f"path {name} launched nn_blocksparse {counts['nn_blocksparse']} times for "
+                     f"{int(fine.iterations)} full-resolution ICP iterations (one more expected)")
             rot, rmse = gate(fine.transformation)
             if rot >= LARGE_GATE_ROT_DEG or rmse >= LARGE_GATE_RMSE:
                 fail(f"path {name} quality gate: rot {rot:.4f} deg, rmse {rmse:.3g}")
@@ -3645,9 +3595,6 @@ def large_phases(dev, results: dict) -> dict:
             + ", ".join(f"{n} {t:.1f}" for n, t in zip(stage_names, ms))
             + f"; full-res ICP {iters} iterations + 1 grading pass, "
               f"{ms[-1] / (iters + 1):.2f} ms a pass")
-        if name == "A":
-            profile_report(lambda: large.register_arrays_large(src_pts, tgt_pts, cfg, device=dev),
-                           f"path {name}")
     torch.cuda.empty_cache()
 
     # --- Q3, Q4 (and Q6): the ring NN and the sharded refinement -------------

@@ -11,6 +11,8 @@ rotation < 0.05 deg, translation < 5e-3, RANSAC fitness within 1e-6, ICP
 RMSE within 1e-4.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,7 +208,7 @@ def test_batch_rejects_bad_arguments(mixed, case):
 
 def test_resident_target_keeps_max_caps(mixed):
     """LRU over capacities: the least recently used one is evicted and
-    re-uploaded from the host copy, equal to before."""
+    packed again from the cloud, equal to before."""
     _, ppairs, _, _, _ = mixed
     rt = pbatch.ResidentTarget(ppairs[0][1], max_caps=2, device="cpu")
     a = rt.at_cap(768)
@@ -344,11 +346,22 @@ def _reshaped(cloud, extra, holes, seed):
 
 
 def _oracle_pack(lanes, cap, dev, *, normals):
-    """The per-cloud packing: each lane's valid rows, padded to ``cap``,
-    moved to ``dev`` and stacked in lane order."""
-    parts = [pbatch._at_cap(pbatch._tight(c), cap, dev) for c in lanes]
-    return tuple(torch.stack([p[w] for p in parts])
-                 for w in ((0, 1, 2, 3) if normals else (0, 1, 2)))
+    """The per-cloud packing: each lane's valid rows cut or zero-padded to
+    ``cap``, moved to ``dev``, a mask over the first of them, and the lanes
+    stacked in lane order."""
+
+    def rows(x, m):
+        x = x[m][:cap]
+        return torch.cat([x, x.new_zeros((cap - x.shape[0],) + tuple(x.shape[1:]))]).to(dev)
+
+    parts = []
+    for c in lanes:
+        d = c.down
+        mask = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        mask[: min(int(d.mask.sum()), cap)] = True
+        parts.append([rows(d.points, d.mask), rows(d.features, d.mask), mask]
+                     + ([rows(d.normals, d.mask)] if normals else []))
+    return tuple(torch.stack(f) for f in zip(*parts))
 
 
 def _pack_case(case, clouds):
@@ -373,9 +386,18 @@ def _pack_case(case, clouds):
     if case == "mesh_quantum_4":
         mesh = pmesh.make_mesh(4, 1, devices=[cpu] * 4)
         return [(a, b), (c, d), (e, f), (g, h), (b, c)], cpu, mesh
-    assert case == "to_target"
-    a, b, c = (_reshaped(x, 96, True, i) for i, x in enumerate((a, b, c)))
-    return ([a, b, c, d], h), cpu, None
+    if case == "to_target":
+        a, b, c = (_reshaped(x, 96, True, i) for i, x in enumerate((a, b, c)))
+        return ([a, b, c, d], h), cpu, None
+    assert case == "to_target_with_holes"
+    # The target's valid rows have holes; a source of two clouds' rows takes
+    # a second capacity, so the target is packed at two.
+    from tpu3dm_torch.core.cloud import PointCloud
+
+    a, h = (_reshaped(x, 96, True, i) for i, x in enumerate((a, h)))
+    both = PointCloud(**{f: torch.cat([getattr(b.down, f), getattr(e.down, f)])
+                         for f in ("points", "mask", "normals", "features")})
+    return ([a, dataclasses.replace(b, down=both), c], h), cpu, None
 
 
 def _run_pack_case(case, clouds, monkeypatch, pack):
@@ -398,11 +420,14 @@ def _run_pack_case(case, clouds, monkeypatch, pack):
         m.setattr(pbatch, "fused_register_step", step)
         m.setattr(pbatch, "batched_register", mesh_step)
         gen = torch.Generator().manual_seed(11)
-        if case == "to_target":
+        if case.startswith("to_target"):
             sources, target = pairs
-            res = pbatch.register_sources_to_target(
-                sources, pbatch.ResidentTarget(target, device=dev), PCFG, generator=gen,
-                **PACK_KW)
+            resident = pbatch.ResidentTarget(target, device=dev)
+            if pack is _oracle_pack:  # the target packed per cloud too
+                resident.at_cap = lambda cap: tuple(
+                    x[0] for x in _oracle_pack([target], cap, dev, normals=True))
+            res = pbatch.register_sources_to_target(sources, resident, PCFG, generator=gen,
+                                                    **PACK_KW)
         else:
             res = pbatch.register_pairs_batched(pairs, PCFG, generator=gen, mesh=mesh,
                                                 device=dev, **PACK_KW)
@@ -410,11 +435,12 @@ def _run_pack_case(case, clouds, monkeypatch, pack):
 
 
 @pytest.mark.parametrize("case", ["holes", "two_capacities", "shared_cloud", "other_device",
-                                  "mesh_quantum_4", "to_target"])
+                                  "mesh_quantum_4", "to_target", "to_target_with_holes"])
 def test_bucket_packing_equals_the_per_cloud_packing(port_clouds, monkeypatch, case):
     """Every tensor the step takes (points, features, masks, normals, bits,
-    in lane order) equals the per-cloud packing's, ``torch.equal``; so do the
-    results under the same generator, bit for bit."""
+    in lane order; a resident target's too, from ``ResidentTarget.at_cap``)
+    equals the per-cloud packing's, ``torch.equal``; so do the results under
+    the same generator, bit for bit."""
     got_calls, got = _run_pack_case(case, port_clouds, monkeypatch, pbatch._pack)
     want_calls, want = _run_pack_case(case, port_clouds, monkeypatch, _oracle_pack)
     assert len(got_calls) == len(want_calls) > 0
@@ -433,6 +459,8 @@ def test_bucket_packing_equals_the_per_cloud_packing(port_clouds, monkeypatch, c
                 for c in pr} == {768, 1024}
     if case == "mesh_quantum_4":
         assert [len(args[0]) for args in got_calls] == [8]
+    if case == "to_target_with_holes":
+        assert sorted(set(got.bucket_of_pair)) == [768, 1536]
 
 
 def _pack_ops(pairs, monkeypatch):
@@ -468,7 +496,6 @@ def _pack_ops(pairs, monkeypatch):
 def test_packing_op_count_does_not_grow_with_the_batch(port_clouds, monkeypatch):
     """4 and 16 pairs of distinct clouds in one bucket: the same aten ops in
     the packing, and one host read of the counts a call."""
-    import dataclasses
 
     def pairs(n):
         copies = [dataclasses.replace(port_clouds[i % 8]) for i in range(2 * n)]

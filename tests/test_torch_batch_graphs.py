@@ -1,14 +1,19 @@
-"""The batch API's CUDA graphs of the fused step (registration/graphs.py).
+"""The port's CUDA graphs (registration/graphs.py): the batch API's graphs
+of the fused step, and the ICP loop's, through one device state.
 
-CPU tests hold the cache's policy, with its capture and replay replaced by a
-test double: a key's first sighting runs eagerly, its second captures, its
+CPU tests run the real device states with the CUDA parts under them (pool,
+streams, event, capture) replaced by test doubles.  They hold the cache's
+policy: a key's first sighting runs eagerly, its second captures, its
 third replays; every field of the key (the lane count, the capacity, each
 ``_Knobs`` field, the device, the matmul precision) separates graphs, and
 host threads share them; at most ``MAX_GRAPHS`` keys are kept, least
 recently used dropped first; a mesh, a CPU device and the adaptive budget
 always run eagerly; each bucket step counts into exactly one of the three
 counters, and only while recording; a capture's kernel launches count at
-each replay, not at the capture.
+each replay, not at the capture.  And the ICP loop's (``icp_loop``, its
+CUDA check monkeypatched): it captures into the same device state as a
+batch step, with the eager loop's answers; its replays add its capture's
+launch tally; it moves none of the batch API's counters.
 
 The ``gpu`` tests hold ``register_pairs_batched`` through replays to
 ``fused_register_step`` called directly, bucket by bucket, bit for bit:
@@ -22,6 +27,7 @@ This file imports neither JAX nor tpu3dm; on a card run
 ``python -m pytest --noconftest tests/test_torch_batch_graphs.py``.
 """
 
+import contextlib
 import dataclasses
 import json
 import threading
@@ -59,44 +65,73 @@ def _counts() -> tuple[int, int, int]:
     return tuple(c.get(k, 0) for k in COUNTERS)
 
 
-class _FakeGraph:
-    """The test double of a ``StepGraph``: static copies of the inputs, and a
-    replay that copies the inputs in and runs the step on the copies."""
+class _FakeStream:
+    """The test double of a CUDA stream: it lies on the CPU, stands for
+    ``card`` and waits on nothing."""
 
-    def __init__(self, step, inputs):
-        self.step = step
-        self.inputs = tuple(x.clone() for x in inputs)
-        self.replays = 0
+    cuda_stream = 0
 
-    def replay(self, inputs):
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
+    def __init__(self, card=None):
+        self.card, self.device = card, torch.device("cpu")
+
+    def wait_stream(self, other):
+        pass
+
+    def wait_event(self, event):
+        event.waits += 1
+
+
+class _FakeEvent:
+    """The test double of the replays' event: its waits and its records."""
+
+    def __init__(self):
+        self.waits = self.records = 0
+
+    def record(self, stream=None):
+        self.records += 1
+
+
+class _FakeCudaGraph:
+    """The test double of a captured graph: a replay runs the captured
+    function on its static inputs and writes what it returns into
+    ``outputs``, in place."""
+
+    def __init__(self, fn, args):
+        self.fn, self.args, self.outputs, self.replays = fn, args, [], 0
+
+    def replay(self):
+        self.outputs[:] = self.fn(*self.args)
         self.replays += 1
-        return tuple(y.clone() for y in self.step(*self.inputs))
 
 
-class _FakeDevice:
-    """The test double of a device's graphs: a lock, a capture that makes a
-    ``_FakeGraph`` and notes the device index, and the replay."""
+class _FakeCuda:
+    """The CUDA parts under ``graphs.DeviceGraphs`` (pool, streams, event,
+    capture) replaced by test doubles, so that the real device
+    states, captures and replays run on the CPU, a card's or not.
+    ``captured``: the card index of each capture, which also launches
+    ``kernel`` once where one is given (a launch the capture tallies)."""
 
-    def __init__(self, index, captured):
-        self.index, self.captured = index, captured
-        self.lock = threading.Lock()
+    def __init__(self, monkeypatch, kernel=None):
+        self.captured, self.pools, self.graphs, self.kernel = [], [], [], kernel
+        monkeypatch.setattr(graphs, "_DEVICES", {})
+        monkeypatch.setattr(graphs, "capture_graph", self.capture)
+        monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
+        monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+        monkeypatch.setattr(torch.cuda, "current_stream", _FakeStream)
+        monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
 
-    def capture(self, step, inputs):
-        self.captured.append(self.index)
-        return _FakeGraph(step, inputs)
-
-    def replay(self, graph, inputs):
-        return graph.replay(inputs)
+    def capture(self, fn, args, pool, stream):
+        self.captured.append(stream.card.index)
+        self.pools.append((pool, stream))
+        if self.kernel is not None:
+            self.kernel.launch(torch.device("cuda"))
+        self.graphs.append(_FakeCudaGraph(fn, args))
+        return self.graphs[-1], self.graphs[-1].outputs
 
 
 def _cache(monkeypatch):
-    cache = graphs.StepGraphs()
-    captured, devices = [], {}
-    monkeypatch.setattr(cache, "_device",
-                        lambda index: devices.setdefault(index, _FakeDevice(index, captured)))
-    return cache, captured
+    return graphs.StepGraphs(), _FakeCuda(monkeypatch).captured
 
 
 def _inputs(b=2, cap=8, seed=0):
@@ -273,6 +308,77 @@ def test_the_cache_keeps_the_least_recently_used_bound(monkeypatch, recording):
     assert _counts() == (before[0], before[1], before[2] + 1)
     cache.run(CARD, KNOBS, _inputs(cap=2), step)
     assert _counts() == (before[0] + 1, before[1], before[2] + 1)
+
+
+# --- the ICP loop's graphs: the same device state ---------------------------
+
+ICP_KW = dict(dist_thresh=0.2, max_iterations=6, relative_fitness=-1.0, relative_rmse=-1.0)
+ICP_REPLAYS = ICP_KW["max_iterations"] - 1  # iteration 0 runs eagerly
+
+
+def _icp(monkeypatch, cuda_graph):
+    """``icp_refine`` on the CPU of a 200-point pair moved apart, every
+    iteration of its budget taken; its graphs are card 0's (the loop's CUDA
+    check monkeypatched)."""
+    from tpu3dm_torch.registration import icp
+
+    monkeypatch.setattr(icp, "device_graphs", lambda dev: graphs.device_graphs(CARD))
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand(200, 3, generator=g)
+    normals = torch.nn.functional.normalize(torch.rand(200, 3, generator=g) - 0.5, dim=-1)
+    mask, none = torch.ones(200, dtype=torch.bool), torch.zeros(200, 0)
+    src = PointCloud(points=pts, mask=mask, normals=normals, features=none)
+    tgt = PointCloud(points=pts + 0.01 * torch.randn(200, 3, generator=g) + 0.02, mask=mask,
+                     normals=normals, features=none)
+    res = icp.icp_refine(src, tgt, torch.eye(4), cuda_graph=cuda_graph, **ICP_KW)
+    return [res.transformation, res.fitness, res.inlier_rmse, torch.as_tensor(res.iterations)]
+
+
+def test_icp_and_the_batch_step_share_one_device_state(monkeypatch):
+    """A batch step captured on card 0 and an ICP loop there: both captured
+    into card 0's one pool on its one stream, both replays waited on and
+    recorded its one event; the loop's answers are the eager loop's."""
+    fake = _FakeCuda(monkeypatch)
+    eager = _icp(monkeypatch, False)
+    assert fake.captured == []
+    cache, step = graphs.StepGraphs(), _Step()
+    for _ in range(2):
+        cache.run(CARD, KNOBS, _inputs(), step)
+    got = _icp(monkeypatch, True)
+    state = graphs.device_graphs(CARD)
+    assert list(graphs._DEVICES.values()) == [state]
+    assert fake.captured == [0, 0] and fake.pools == [(state.pool, state.stream)] * 2
+    assert state.done.waits == state.done.records == 1 + ICP_REPLAYS
+    assert [g.replays for g in fake.graphs] == [1, ICP_REPLAYS]
+    assert all(torch.equal(x, y) for x, y in zip(got, eager))
+
+
+def test_an_icp_replay_adds_its_capture_launch_tally(monkeypatch):
+    """The ICP loop's capture launches a kernel once: the launch is tallied,
+    not counted, and each replay through the device state adds it."""
+    from tpu3dm_torch import csrc
+
+    monkeypatch.setattr(csrc, "KERNELS", {})
+    k = csrc.Kernel("k", "none.cu", "t3t_none", [])
+    k._fn = lambda *args: 0
+    fake = _FakeCuda(monkeypatch, kernel=k)
+    _icp(monkeypatch, True)
+    assert fake.captured == [0] and k.launches == ICP_REPLAYS
+
+
+def test_icp_graphs_move_no_batch_counter(monkeypatch, recording):
+    """The ICP loop's capture and replays count into no ``batch.*`` counter
+    and enter no ``batch.graph`` span; a batch step's three sightings after
+    them count as before."""
+    fake = _FakeCuda(monkeypatch)
+    _icp(monkeypatch, True)
+    assert fake.captured == [0] and Profiler.counters() == {}
+    assert not any(sp.name.startswith("batch.") for sp in Profiler.spans())
+    cache, step = graphs.StepGraphs(), _Step()
+    for _ in range(3):
+        cache.run(CARD, KNOBS, _inputs(), step)
+    assert _counts() == (1, 1, 1)
+    assert [sp.name for sp in Profiler.spans()].count("batch.graph") == 2
 
 
 def _cloud(n_valid, cap=64, seed=0):

@@ -1322,7 +1322,7 @@ def _fused_batch_inputs(device, n_pairs=8, cap=1024):
     cfg = PipelineConfig.with_voxel_size(0.3)
     raw = [c for s in range(n_pairs) for c in make_benchmark_pair(20000, seed=s, sigma=0.01)[:2]]
     procs = preprocess_points_batch(raw, cfg.preprocess, full_normals=False, device=device)
-    padded = [batch._at_cap(batch._tight(p), cap, device) for p in procs]
+    padded = [tuple(x[0] for x in batch._compact([p], cap, device, normals=True)) for p in procs]
     knobs = batch._Knobs.of(cfg, ransac_iterations=4096, icp_iterations=8, icp_solves_per_nn=2,
                             approx_score=True, sample_mode="roll")
     return padded, knobs

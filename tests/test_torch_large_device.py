@@ -12,8 +12,9 @@ points; the verification's batches (restarts as lanes of one
 tiers of its search) equal the one-at-a-time runs and elect what they
 elect; ``cuda_graph`` leaves the CPU's loop as it is.  The ``gpu`` tests
 hold the card's grid and partition to the host routes at 1M points, and
-the ICPs replayed as CUDA graphs to the eager loops; they skip without a
-card.
+the ICPs replayed as CUDA graphs to the eager loops (answers and kernel
+launches), beside a batch-API step replayed on another thread; they skip
+without a card.
 
 This file imports neither JAX nor tpu3dm; on a card run
 ``python -m pytest --noconftest tests/test_torch_large_device.py``.
@@ -362,12 +363,19 @@ def test_icp_graph_replays_equal_the_eager_loops_at_1m_points(cuda_device, monke
     """The large path's three ICPs with their iterations replayed as CUDA
     graphs (the verification's 8 poses, point to point; the polish, point to
     plane; the block-sparse ICP on 1M points) give the eager loops' poses,
-    fitness, RMSE and iterations bit for bit, twice in a row (the second
-    captures reuse the first's memory pool); and the verification's batch in
-    the tiled tier too."""
+    fitness, RMSE and iterations bit for bit, and their kernel launches
+    (counted at each replay), twice in a row (the second captures reuse the
+    first's memory pool); with a batch-API step captured and replayed in the
+    same pool on a second thread between the two, and replayed there again
+    all through the second, every replay with its eager answers; and the
+    verification's batch in the tiled tier too."""
+    import threading
+
     from tpu3dm_torch.core import se3
+    from tpu3dm_torch.csrc import KERNELS, reset_launch_counts
     from tpu3dm_torch.ops import nn
     from tpu3dm_torch.preprocess.pipeline import down_features
+    from tpu3dm_torch.registration import graphs
     from tpu3dm_torch.registration.icp import icp_refine
 
     src, tgt, T_true = _pair(1 << 20, 6, device=cuda_device)
@@ -397,10 +405,48 @@ def test_icp_graph_replays_equal_the_eager_loops_at_1m_points(cuda_device, monke
                     torch.as_tensor(res.iterations)]
         return out
 
+    def launches():
+        torch.cuda.synchronize()
+        return {name: k.launches for name, k in KERNELS.items()}
+
+    # A batch-API step on its own thread: its intermediates and outputs lie
+    # in the pool the ICPs' graphs share.
+    steps, x = graphs.StepGraphs(), torch.rand(256, 1024, device=cuda_device)
+
+    def step(x):
+        y = torch.exp(x) * x
+        return y.sum(dim=1), (y * y).cumsum(dim=1)
+
+    want = step(x)
+    replays, stop = [], threading.Event()
+
+    def batch_steps(done):
+        while True:
+            replays.append(all(torch.equal(a, b) for a, b in
+                               zip(steps.run(cuda_device, "step", (x,), step), want)))
+            if done():
+                return
+
+    reset_launch_counts()
     eager = answers(False)
-    for _ in range(2):
-        for x, y in zip(answers(True), eager):
-            assert torch.equal(x.cpu(), y.cpu())
+    counts = launches()
+    assert counts["nn_blocksparse"] > 0
+    for run in range(2):
+        if run == 1:  # replayed all through this run
+            worker = threading.Thread(target=batch_steps, args=(stop.is_set,))
+            worker.start()
+        reset_launch_counts()
+        for x_, y in zip(answers(True), eager):
+            assert torch.equal(x_.cpu(), y.cpu())
+        assert launches() == counts
+        if run == 0:  # seen, captured and replayed between the two runs
+            worker = threading.Thread(target=batch_steps, args=(lambda: len(replays) == 3,))
+            worker.start()
+        else:
+            stop.set()
+        worker.join(timeout=300)
+        assert not worker.is_alive()
+    assert len(replays) >= 4 and all(replays) and steps.graphs() == 1
     monkeypatch.setattr(nn, "DENSE_MAX_ENTRIES", 1024)
     kw = dict(dist_thresh=0.45, max_iterations=5, point_to_plane=False)
     a = icp_refine(sd, td, T0, cuda_graph=True, **kw)

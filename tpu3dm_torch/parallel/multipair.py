@@ -89,7 +89,7 @@ def rot_cos(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     return (chain_sum((Ta[..., :3, :3] * Tb[..., :3, :3]).flatten(-2)) - 1.0) * 0.5
 
 
-def _at(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def pick_per_lane(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """x[b, k[b]] for x [B, K, ...] and k [B]."""
     return x[torch.arange(x.shape[0], device=x.device), k]
 
@@ -103,7 +103,7 @@ def _peaks(R, t, counts, n_modes: int, cos_thr: float):
         k = torch.argmax(cw, dim=-1)
         Tk = winner_T(R, t, k)
         Ts.append(Tk)
-        cs.append(_at(cw, k))
+        cs.append(pick_per_lane(cw, k))
         cw = torch.where(rot_cos_planar(Tk, R) >= cos_thr, -1, cw)
     return torch.stack(Ts, 1), torch.stack(cs, 1)
 
@@ -115,9 +115,9 @@ def _reselect(allT, allc, n_modes: int, cos_thr: float):
     outT, outc, aw = [], [], allc
     for _ in range(n_modes):
         k = torch.argmax(aw, dim=-1)
-        Tk = _at(allT, k)
+        Tk = pick_per_lane(allT, k)
         outT.append(Tk)
-        outc.append(_at(aw, k))
+        outc.append(pick_per_lane(aw, k))
         aw = torch.where(rot_cos(Tk[:, None], allT) >= cos_thr, -1, aw)
     return torch.stack(outT, 1), torch.stack(outc, 1)
 
@@ -301,11 +301,11 @@ def ransac_pair_step(
                 exact = rescore_rows(H_top, torch.gather(e, 1, top_i), F, c, valid, thresh_sq)
                 exact = torch.where(top_c < 0, -1, exact)
                 j = torch.argmax(exact, dim=-1)
-                k, cand = _at(top_i, j), _at(exact, j)
+                k, cand = pick_per_lane(top_i, j), pick_per_lane(exact, j)
             else:
                 R, t, counts = fit_chunk(bits)
                 k = torch.argmax(counts, dim=-1)
-                cand = _at(counts, k)
+                cand = pick_per_lane(counts, k)
             better = cand > best_count
             return (_where_T(better, winner_T(R, t, k), best_T),
                     torch.where(better, cand, best_count))
@@ -326,10 +326,10 @@ def ransac_pair_step(
         T1, c1, T2, c2 = carry
         R, t, counts = fit_chunk(bits)
         ka = torch.argmax(counts, dim=-1)
-        Ta, ca = winner_T(R, t, ka), _at(counts, ka)
+        Ta, ca = winner_T(R, t, ka), pick_per_lane(counts, ka)
         far = torch.where(rot_cos_planar(Ta, R) < cos_thr, counts, -1)
         kb = torch.argmax(far, dim=-1)
-        Tb, cb = winner_T(R, t, kb), _at(far, kb)
+        Tb, cb = winner_T(R, t, kb), pick_per_lane(far, kb)
         T1, c1, T2, c2 = _merge(T1, c1, T2, c2, Ta, ca, cos_thr)
         return _merge(T1, c1, T2, c2, Tb, cb, cos_thr)
 

@@ -97,30 +97,6 @@ class BatchResult:
     # (-1 = restored from a checkpoint store, not dispatched this run)
 
 
-def _tight(cloud: ProcessedCloud) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Valid-only (points, features, normals) of the downsampled cloud, on
-    its device."""
-    m = cloud.down.mask
-    return cloud.down.points[m], cloud.down.features[m], cloud.down.normals[m]
-
-
-def _pad_rows(a: torch.Tensor, n: int) -> torch.Tensor:
-    """``a`` cut or zero-padded to ``n`` rows."""
-    pad = n - a.shape[0]
-    if pad <= 0:
-        return a[:n]
-    return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-
-
-def _at_cap(rows: tuple, cap: int, dev: torch.device) -> tuple[torch.Tensor, ...]:
-    """(points, features, mask, normals) on ``dev`` at capacity ``cap`` from
-    a cloud's valid (points, features, normals)."""
-    tp, tf, tn = (_pad_rows(x, cap).to(dev) for x in rows)
-    mask = torch.zeros((cap,), dtype=torch.bool, device=dev)
-    mask[: min(int(rows[0].shape[0]), cap)] = True
-    return tp, tf, mask, tn
-
-
 def pair_bits_shape(
     cap: int,
     *,
@@ -255,21 +231,21 @@ def _rows(given, idxs: list[int]) -> torch.Tensor:
 
 
 class ResidentTarget:
-    """A compacted target cloud kept on the device per capacity bucket.
+    """A target cloud packed once per capacity bucket and kept on the device.
 
-    ``at_cap(cap)`` pads the valid rows to ``cap`` and uploads them once;
-    later buckets at the same capacity reuse the same device tensors.  The
-    host copies stay cached, so a target that sees many capacities keeps only
-    the ``max_caps`` most recently used ones on the device (LRU) and
-    re-uploads an evicted one from the host copy.
+    ``at_cap(cap)`` packs the cloud at capacity ``cap`` as a bucket's lanes
+    are packed (``_compact``); later buckets at the same capacity reuse the
+    same device tensors.  A target that sees many capacities keeps only the
+    ``max_caps`` most recently used ones (LRU) and packs an evicted one
+    again from the cloud.
 
     ``device=None`` means CUDA, and raises when CUDA is absent.
     """
 
     def __init__(self, cloud: ProcessedCloud, *, max_caps: int = 8, device=None) -> None:
         self.device = resolve_device(device)
-        self._host = tuple(x.cpu() for x in _tight(cloud))
-        self.n_valid = int(self._host[0].shape[0])
+        self._cloud = cloud
+        self.n_valid = int(cloud.down.mask.sum())
         self.max_caps = max_caps
         self._by_cap: OrderedDict[int, tuple] = OrderedDict()
 
@@ -278,7 +254,8 @@ class ResidentTarget:
         if cap not in self._by_cap:
             while len(self._by_cap) >= max(1, self.max_caps):
                 self._by_cap.popitem(last=False)
-            self._by_cap[cap] = _at_cap(self._host, cap, self.device)
+            packed = _compact([self._cloud], cap, self.device, normals=True)
+            self._by_cap[cap] = tuple(x[0] for x in packed)
         self._by_cap.move_to_end(cap)
         return self._by_cap[cap]
 
@@ -386,8 +363,8 @@ def _compact(clouds: list[ProcessedCloud], cap: int, dev: torch.device,
 def _pack(lanes: list[ProcessedCloud], cap: int, dev: torch.device, *,
           normals: bool) -> tuple[torch.Tensor, ...]:
     """(points, features, mask[, normals]) [len(lanes), cap, ...] on ``dev``:
-    lane j is ``_at_cap(_tight(lanes[j]), cap, dev)``, bit for bit.  A fixed
-    number of device ops for each ``_group`` among the lanes, none a lane."""
+    lane j is ``lanes[j]`` packed by ``_compact``.  A fixed number of device
+    ops for each ``_group`` among the lanes, none a lane."""
     groups: dict[tuple, list[int]] = {}
     for j, c in enumerate(lanes):
         groups.setdefault(_group(c), []).append(j)

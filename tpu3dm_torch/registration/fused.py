@@ -49,12 +49,12 @@ from tpu3dm_torch.core import se3
 from tpu3dm_torch.ops.nn_lane import nn_mutual_mask_batched, nn_search_lane
 from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, row_sums, small_matmul, small_matvec
 from tpu3dm_torch.parallel.multipair import (
-    _at,
     checked_bits,
     chunk_bits_shape,
     extra_chunk_count,
     f32_cos_deg,
     f32_square,
+    pick_per_lane,
     ransac_pair_step,
     rot_cos,
 )
@@ -298,7 +298,7 @@ def _dedup(cands, ccounts, *, dist_thresh: float, n_keep: int):
     aw = ccounts.to(torch.float32)
     for _ in range(n_keep):
         k = torch.argmax(aw, dim=-1)
-        Tk, ak = _at(cands, k), _at(aw, k)
+        Tk, ak = pick_per_lane(cands, k), pick_per_lane(aw, k)
         keepT.append(Tk)
         keepc.append(torch.clamp_min(ak, 0.0).to(torch.int32))
         rot_near = rot_cos(Tk[:, None], cands) >= cos_thr
@@ -359,6 +359,14 @@ def verify_candidates(
                          icp_thresh=icp_thresh)
 
 
+def _tiebreak(vfit, vrmse, src_mask, dist_thresh: float) -> torch.Tensor:
+    """The election's tie-break score of verified candidates [B, C]: inliers
+    at the coarse threshold, then (1 - RMSE / threshold) below one inlier."""
+    n_src = torch.clamp_min(torch.sum(src_mask, dim=-1), 1).to(torch.float32)[:, None]
+    rmse_frac = torch.clamp(vrmse / float(np.float32(dist_thresh)), 0.0, 1.0)
+    return torch.round(vfit * n_src) + (1.0 - rmse_frac) * 0.999
+
+
 def verify_elect(
     cands, ccounts, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals, *,
     dist_thresh: float, icp_thresh: float, verify_iters: int, rescue_modes: int,
@@ -381,9 +389,7 @@ def verify_elect(
         dist_thresh=dist_thresh, icp_thresh=icp_thresh, verify_iters=verify_iters,
         f16_payload=f16_payload,
     )
-    n_src = torch.clamp_min(torch.sum(src_mask, dim=-1), 1).to(torch.float32)[:, None]
-    rmse_frac = torch.clamp(vrmse / float(np.float32(dist_thresh)), 0.0, 1.0)
-    coarse_score = torch.round(vfit * n_src) + (1.0 - rmse_frac) * 0.999
+    coarse_score = _tiebreak(vfit, vrmse, src_mask, dist_thresh)
     support = ccounts.to(torch.float32)
     near = support >= RESCUE_TIE_RATIO * torch.amax(support, dim=-1, keepdim=True)
     vfine_near_best = torch.amax(torch.where(near, vfine, 0.0), dim=-1, keepdim=True)
@@ -391,7 +397,7 @@ def verify_elect(
     fine_best = torch.amax(torch.where(eligible, vfine, -1.0), dim=-1, keepdim=True)
     score = torch.where(eligible & (vfine >= fine_best), coarse_score, -1.0)
     best = torch.argmax(score, dim=-1)
-    return _at(vT, best), _at(ccounts, best)
+    return pick_per_lane(vT, best), pick_per_lane(ccounts, best)
 
 
 def _inputs(dev, floats, flags):
@@ -566,13 +572,11 @@ def verify_elect_probes(
     vT, vfit, vfine, vrmse = verify_candidates(
         T0, src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals, dist_thresh=dist_thresh,
         icp_thresh=icp_thresh, verify_iters=verify_iters, f16_payload=f16)
-    n_src = torch.clamp_min(torch.sum(src_mask, dim=-1), 1).to(torch.float32)[:, None]
-    rmse_frac = torch.clamp(vrmse / float(np.float32(dist_thresh)), 0.0, 1.0)
-    tiebreak = torch.round(vfit * n_src) + (1.0 - rmse_frac) * 0.999
+    tiebreak = _tiebreak(vfit, vrmse, src_mask, dist_thresh)
     fine_best = torch.amax(vfine, dim=-1, keepdim=True)
     best = torch.argmax(torch.where(vfine >= fine_best, tiebreak, -1.0), dim=-1)
-    T, _ = icp_polish(_at(vT, best), src_pts, src_mask, tgt_pts, tgt_mask, tgt_normals,
-                      icp_thresh=icp_thresh, icp_iterations=6, icp_solves_per_nn=1,
+    T, _ = icp_polish(pick_per_lane(vT, best), src_pts, src_mask, tgt_pts, tgt_mask,
+                      tgt_normals, icp_thresh=icp_thresh, icp_iterations=6, icp_solves_per_nn=1,
                       f16_payload=f16)
     fit, _, rmse = _grade(T, src_pts, src_mask, tgt_pts, tgt_mask, dist_thresh=dist_thresh,
                           icp_thresh=icp_thresh)

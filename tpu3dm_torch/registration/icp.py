@@ -15,13 +15,11 @@ all.  One pose [4, 4] is a batch of none.
 replays advance the loop's state in place; every later iteration is a
 replay, so the host launches the ~200 small ops of an iteration once a
 call, not once an iteration.  The replays run the eager loop's kernels on
-the same values: the result is the eager loop's, bit for bit.  Graphs of a
-thread share one memory pool, which the newest graph keeps alive.
+the same values: the result is the eager loop's, bit for bit.  The graphs'
+pool, stream, turns and launch counts are ``registration/graphs.py``'s.
 """
 
 from __future__ import annotations
-
-import threading
 
 import torch
 
@@ -30,7 +28,7 @@ from tpu3dm_torch.core.cloud import PointCloud
 from tpu3dm_torch.core.config import IcpConfig
 from tpu3dm_torch.ops.nn import nn_search
 from tpu3dm_torch.parallel.multipair import f32_square
-from tpu3dm_torch.registration.graphs import capture_graph
+from tpu3dm_torch.registration.graphs import device_graphs
 from tpu3dm_torch.registration.result import RegistrationResult
 
 
@@ -68,31 +66,6 @@ def gauss_newton_step(T, pts, q, n, m, point_to_plane: bool) -> torch.Tensor:
     return se3.exp_se3(xi) @ T
 
 
-# (device index, thread) -> (graph pool, capture stream, newest graph)
-_GRAPHS: dict[tuple[int, int], tuple] = {}
-
-
-def _capture(body, state: tuple) -> tuple:
-    """(graph, static state): a CUDA graph of ``body`` on static copies of
-    ``state`` ([tensors] on one CUDA device) that writes ``body``'s results
-    back into them, so that each replay advances the state by one call."""
-    dev = state[0].device
-    key = (dev.index, threading.get_ident())
-    pool, stream, _ = _GRAPHS.get(key) or (torch.cuda.graph_pool_handle(),
-                                            torch.cuda.Stream(dev), None)
-    static = tuple(t.clone() for t in state)
-
-    def advance(*state):
-        for dst, src in zip(state, body(*state)):
-            dst.copy_(src)
-
-    graph, _ = capture_graph(advance, static, pool, stream)
-    # The older graph is never replayed again; dropping it leaves the pool to
-    # this one.
-    _GRAPHS[key] = (pool, stream, graph)
-    return graph, static
-
-
 def icp_loop(
     correspond, tgt_points, tgt_normals, T, *,
     max_iterations: int, relative_fitness: float, relative_rmse: float,
@@ -126,15 +99,21 @@ def icp_loop(
                             & (torch.abs(r_new - r_cur) < relative_rmse))
         return T, live, f_new, r_new
 
+    def in_place(*state):  # a replay writes the next state over this one
+        for dst, src in zip(state, advance(*state)):
+            dst.copy_(src)
+        return ()
+
     state, graph = (T, live, f_cur, r_cur), None
-    graphed = cuda_graph and T.is_cuda
+    graphs = device_graphs(T.device) if cuda_graph else None
     for it in range(max_iterations):
-        if graph is None and graphed and it > 0:
-            graph, state = _capture(advance, state)
+        if graph is None and graphs is not None and it > 0:
+            state = tuple(t.clone() for t in state)  # outside the pool
+            graph = graphs.capture(in_place, state)
         if graph is None:
             state = advance(*state, test=it > 0)
         else:
-            graph.replay()
+            graphs.replay(graph)
         iterations += live_host
         if 0 < it < max_iterations - 1:
             live_host = state[1].cpu()
