@@ -34,7 +34,10 @@ Phases (any failure exits non-zero and prints no ok line):
      the rescore shape (128 fp32 hypotheses a lane over all 1024 rows, row
      "ransac_score_rescore", inside the fp32 float64 bracket); the
      ordered-row-sum kernel (row "row_sums", a port-only repair) at the
-     ICP's [2048, 27, 1024] rows, bit-equal to its plain version;
+     ICP's [2048, 27, 1024] rows, bit-equal to its plain version; the
+     point-to-plane normal-equation sums (row "p2pl_sums", port-only) at
+     the scan cell's verification shape [512, 10, 1024], q and n as views
+     of the search payload, bit-equal to its plain version;
   5. the main path: fused_register_step over the 2048 lanes (4096
      hypotheses, 8 point-to-plane ICP iterations with 4 solves per NN
      search, bf16 score), launch counts zeroed just before and read just
@@ -288,6 +291,10 @@ SOURCES = {
 PORT_ONLY_SOURCES = {
     "row_sums": ("tpu3dm_torch/csrc/row_sums.cu",
                  "none: port-only repair (the row sums of tpu3dm/registration/fused.py:127)"),
+    "p2pl_sums": ("tpu3dm_torch/csrc/p2pl_sums.cu",
+                  "none: port-only repair of eager PyTorch's unfused normal-equation rows "
+                  "(XLA fuses those of tpu3dm/registration/fused.py:_p2pl_delta_planar "
+                  "into their sums)"),
 }
 # A row that times a kernel at a second shape or on other inputs, and that
 # kernel's name.
@@ -305,7 +312,10 @@ PARENT_MS = {"nn_tiled_wide": 0.4062, "ransac_score_fp32_1lane": 0.4431, "ransac
 # score chunk (approx_score: bf16), one 3-D search every ICP_SOLVES_PER_NN
 # iterations.
 FUSED_LAUNCHES = {"lane_mutual": 1, "ransac_score_bf16": 1, "ransac_score": 0,
-                  "lane_nn_smalld": -(-ICP_ITERS // ICP_SOLVES_PER_NN)}
+                  "lane_nn_smalld": -(-ICP_ITERS // ICP_SOLVES_PER_NN), "p2pl_sums": ICP_ITERS}
+# The p2pl_sums row's shape: the scan cell's calls of 512 pairs, each
+# verifying VERIFY_CANDIDATES poses over its 1024-row capacity.
+CELL_LANES = 512
 LARGE_KERNELS = ("nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse")
 # Path S: bench.py's stream phase (bench.py:487-517): a fresh mixed manifest
 # of arch / plate / scan pairs, window 128, every cloud at down_cap 896.
@@ -332,7 +342,7 @@ SERVE_CLIENTS = 8
 SERVE_SOURCES = 16
 SERVE_FLOOD = 128
 SERVE_CAPS = [768, 1024]
-SERVE_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+SERVE_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums", "p2pl_sums")
 # Path P: register_files on two arch PLYs at voxel 0.3, restarts 1 and 4.
 PIPELINE_RESTARTS = (1, 4)
 PIPELINE_KERNELS = ("ransac_score", "nn_tiled_smalld")
@@ -344,7 +354,8 @@ MULTIWAY_SMALL = 16
 MULTIWAY_POINTS = 20_000
 MULTIWAY_RESCUE = 2
 MULTIWAY_ROBUST = 0.1
-MULTIWAY_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+MULTIWAY_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums",
+                    "p2pl_sums")
 MULTIWAY_FULL_KERNELS = ("ransac_score", "nn_tiled_smalld")
 RESUME_CLOUDS = 4
 # The pose graph solved on the card and on the CPU from the same edges.
@@ -362,7 +373,7 @@ FEATURE_ROUTES = (
 MESH_PAIR_SHAPES = ((1, 1), (2, 1), (4, 1))  # Q1's meshes
 MESH_N = 4  # Q2's pair axis; Q3-Q5's block axis
 MESH_SERVE_REQUESTS = 64  # Q2's serving engine
-MESH_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+MESH_KERNELS = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums", "p2pl_sums")
 RING_FEATURES = 32_768  # Q3 at d = 33: 8192^2 entries a ring step on 4 shards
 RING_MASKED = 0.05  # the share of masked rows of Q3's features
 RING_TOL = 1e-5  # Q3's d2 bound: rtol = atol of JAX's own ring test (tests/test_parallel.py:43)
@@ -375,7 +386,7 @@ RING_TOL = 1e-5  # Q3's d2 bound: rtol = atol of JAX's own ring test (tests/test
 MESH_LARGE_GAP_DEG, MESH_LARGE_GAP_T = 0.1, 5e-4
 # The card tests of the batch-size repair and the mesh, run by pytest in the
 # card-test phase.
-CARD_TESTS = "row_sums or batch_size or cloud_count or pose_graph or crash or mesh"
+CARD_TESTS = "row_sums or p2pl or batch_size or cloud_count or pose_graph or crash or mesh"
 # Phase X: the application layer (apps/cli.py, apps/benchmark.py,
 # apps/kernelbench.py, viz/) at JAX's widths (points per cloud, voxel,
 # hypotheses, ICP iterations), cut only in repetitions.
@@ -876,6 +887,8 @@ def main() -> int:
             f"max abs err {r['max_abs_err']:.3g}; "
             f"{LANES} lanes: kernel {r['ms']:.4f} ms{launch}, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    results["p2pl_sums"] = p2pl_sums_case(dev, cap)
+    torch.cuda.empty_cache()
 
     # --- 5. main path -----------------------------------------------------
     torch.cuda.reset_peak_memory_stats()  # the kernel phase's yardsticks are not the step's
@@ -2157,6 +2170,45 @@ def row_sums_case(dev, cap: int) -> dict:
     )
 
 
+def p2pl_sums_case(dev, cap: int) -> dict:
+    """The normal-equation kernel (port-only) at the scan cell's
+    verification solve: CELL_LANES pairs x VERIFY_CANDIDATES poses x ``cap``
+    rows, q and n the views [..., :3] and [..., 3:] of [..., 6] search rows,
+    a third of the rows masked; held bit for bit against its plain version."""
+    import torch
+
+    from tpu3dm_torch.ops import rowsum
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shape = (CELL_LANES, VERIFY_CANDIDATES, cap)
+    pts = 20.0 * torch.randn(shape + (3,), generator=gen, device=dev)
+    n = torch.nn.functional.normalize(torch.randn(shape + (3,), generator=gen, device=dev), dim=-1)
+    rows = torch.cat([pts + 0.05 * torch.randn(shape + (3,), generator=gen, device=dev), n], -1)
+    w = (torch.rand(shape, generator=gen, device=dev) > 0.33).to(torch.float32)
+    args = (pts, rows[..., :3], rows[..., 3:], w)
+    got, want = rowsum.p2pl_sums(*args), rowsum.p2pl_sums_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        fail(f"p2pl_sums: the kernel differs from its plain version by up to {err:.3g} "
+             f"(bit-equal expected)")
+    # Needed bytes: 10 floats a row in (point, matched point, normal, weight),
+    # 27 sums a lane out; about 80 fp32 instructions a row.
+    r = dict(
+        agree=1.0, max_abs_err=err,
+        ms=cuda_ms(lambda: rowsum.p2pl_sums(*args), 20),
+        plain_ms=cuda_ms(lambda: rowsum.p2pl_sums_plain(*args), 3),
+        library_ms=None,  # no single PyTorch call forms and sums these products
+        bound=bound_ms(40 * w.numel() + 108 * w.numel() // cap, (80.0 * w.numel(), "fp32")),
+        shape=f"{CELL_LANES} pairs x {VERIFY_CANDIDATES} candidates x {cap} rows (the scan "
+              f"cell's verification solve), q and n payload views",
+    )
+    log(f"kernel p2pl_sums: max abs err {err:.3g}; kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}): "
+        f"{100 * r['bound'][0] / r['ms']:.1f}% of it")
+    return r
+
+
 def serve_paths(dev, cfg) -> dict:
     """Path V: the serving tier at ServeConfig's defaults on the card.  A
     RegistrationServer on loopback port 0, prewarmed at SERVE_CAPS, takes
@@ -2912,7 +2964,8 @@ def mesh_pair_paths(dev, cfg, src, tgt, bits, T_true, mu, M2) -> dict:
 
 def card_tests() -> None:
     """The card tests of tests/test_torch_kernels.py named by CARD_TESTS: the
-    ordered-row-sum kernel bit-equal to its plain version; one pair of
+    ordered-row-sum and normal-equation kernels bit-equal to their plain
+    versions, and a replayed bucket launching the latter 16 times; one pair of
     fused_register_step with batch.py's knobs bit-equal alone and in batches
     of 2, 8 and 128; each cloud's kNN features bit-equal at 1, 16 and 256
     clouds a call; the pose-graph solves bit-equal call to call; the crash
@@ -3085,7 +3138,8 @@ def app_paths(dev, cfg) -> dict:
         pair_paths, trues, moments = make_stream_manifest(tmp / "batch", APP_BATCH_PAIRS,
                                                           n_points=APP_POINTS, sigma=0.01)
         (tmp / "manifest.txt").write_text("".join(f"{a} {b}\n" for a, b in pair_paths))
-        batch_kernels = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums")
+        batch_kernels = ("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums",
+                         "p2pl_sums")
         results = {}
         for mode, extra in (("whole", []), (f"--window {APP_BATCH_WINDOW}",
                                             ["--window", str(APP_BATCH_WINDOW)])):
@@ -3211,7 +3265,8 @@ def app_paths(dev, cfg) -> dict:
                    f"{r['fresh_pairs_per_sec']} fresh pairs/s steady, device only "
                    f"{r['device_only_pairs_per_sec']}, {r['retry_pairs']} retried, worst pair "
                    f"{r['rot_err_deg_worst_pair']:.3f} deg, {r['pairs_over_2deg']} over 2 deg")),
-               need=("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums"))
+               need=("lane_mutual", "lane_nn_smalld", "ransac_score_bf16", "row_sums",
+                     "p2pl_sums"))
 
         def overlap_note(r):
             rates = {fam: [(row["overlap"], row["plain"]["success_rate_2deg"],

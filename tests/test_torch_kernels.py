@@ -19,7 +19,8 @@ from tpu3dm_torch.ops import nn_lane, nn_sparse, ransac_score, rowsum
 
 ALL_KERNELS = {"lane_nn_smalld", "lane_mutual", "lane_mutual_bf16_cross", "ransac_score",
                "ransac_score_bf16",
-               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide", "row_sums"}
+               "nn_tiled_smalld", "nn_tiled_wide", "nn_blocksparse", "lane_nn_wide", "row_sums",
+               "p2pl_sums"}
 
 
 @pytest.fixture
@@ -46,6 +47,8 @@ def test_wrappers_run_plain_on_cpu_without_launching():
     nn_sparse.nn_search_table(torch.rand(8, 3), torch.rand(16, 3),
                               torch.zeros(2, 2, dtype=torch.int32), block=4)
     rowsum.row_sums(torch.rand(3, 40))
+    rowsum.p2pl_sums(torch.rand(3, 40, 3), torch.rand(3, 40, 3), torch.rand(3, 40, 3),
+                     torch.rand(3, 40))
     assert set(KERNELS) == ALL_KERNELS
     assert all(k.launches == 0 for k in KERNELS.values())
 
@@ -73,6 +76,8 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         nn_sparse.nn_search_table(torch.zeros(8, 3, device="meta"), torch.zeros(8, 3, device="meta"),
                                   torch.zeros(2, 1, dtype=torch.int32, device="meta"), block=4)
+    with pytest.raises(ValueError):
+        rowsum.p2pl_sums(x, x, x, torch.zeros(1, 8, device="meta"))
 
 
 def test_wrappers_check_shapes():
@@ -93,6 +98,11 @@ def test_wrappers_check_shapes():
         nn_sparse.nn_search_table(torch.zeros(7, 3), torch.zeros(8, 3), table, block=4)
     with pytest.raises(ValueError):  # one table row per query block
         nn_sparse.nn_search_table(torch.zeros(12, 3), torch.zeros(8, 3), table, block=4)
+    p = torch.zeros(2, 8, 3)
+    for q, w in ((torch.zeros(1, 8, 3), torch.zeros(2, 8)), (p, torch.zeros(2, 7)),
+                 (torch.zeros(2, 8, 4), torch.zeros(2, 8))):
+        with pytest.raises(ValueError):
+            rowsum.p2pl_sums(p, q, p, w)
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):
@@ -1309,6 +1319,152 @@ def test_row_sums_kernel_equals_plain(cuda_device, m):
 def test_row_sums_kernel_takes_only_float32(cuda_device):
     with pytest.raises(TypeError):
         rowsum.row_sums(torch.zeros((2, 40), dtype=torch.float64, device=cuda_device))
+
+
+def _p2pl_inputs(lead, m, payload, seed=0):
+    """Correspondences (pts, q, n [*lead, m, 3], w [*lead, m]) on the CPU as
+    the fused step hands them to ``p2pl_sums``, with ``payload`` q and n the
+    views ``[..., :3]`` and ``[..., 3:]`` of [..., m, 6] search rows (row
+    stride 6).  A third of the rows are masked (w = 0); lane 0's first
+    normal is infinite; the last lane's last point is NaN under w = 0; the
+    second lane (where there is one) has every weight zero and some normals
+    of -0.0, so its products are signed zeros."""
+    g = torch.Generator().manual_seed(seed)
+    shape = tuple(lead) + (m,)
+    pts = 20.0 * torch.randn(shape + (3,), generator=g)
+    n = torch.nn.functional.normalize(torch.randn(shape + (3,), generator=g), dim=-1)
+    rows = torch.cat([pts + 0.05 * torch.randn(shape + (3,), generator=g), n], dim=-1)
+    w = (torch.rand(shape, generator=g) > 0.33).to(torch.float32)
+    lanes_rows, lanes_w, lanes_pts = rows.view(-1, m, 6), w.view(-1, m), pts.view(-1, m, 3)
+    lanes_rows[0, 0, 3] = float("inf")
+    lanes_pts[-1, -1] = float("nan")
+    lanes_w[-1, -1] = 0.0
+    if lanes_w.shape[0] > 2:
+        lanes_w[1] = 0.0
+        lanes_rows[1, ::2, 3:] = -lanes_rows[1, ::2, 3:].abs()
+        lanes_rows[1, ::3, 4] = -0.0
+    if payload:
+        return pts, rows[..., :3], rows[..., 3:], w
+    return pts, rows[..., :3].contiguous(), rows[..., 3:].contiguous(), w
+
+
+def _p2pl_stacked_chain(pts, q, n, w):
+    """The 27 normal-equation rows as the fused step stacked them before the
+    sums had a kernel of their own, then ``row_sums_plain``."""
+    px, py, pz = pts[..., 0], pts[..., 1], pts[..., 2]
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    J = (nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx)
+    r = (px - q[..., 0]) * nx + (py - q[..., 1]) * ny + (pz - q[..., 2]) * nz
+    rows = [w * J[i] * J[j] for i in range(6) for j in range(i + 1)]
+    return rowsum.row_sums_plain(torch.stack(rows + [w * J[i] * r for i in range(6)], dim=-2))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("payload", [True, False], ids=["payload_views", "contiguous"])
+@pytest.mark.parametrize("lead", [(3,), (2, 5)], ids=["3", "2x5"])
+@pytest.mark.parametrize("m", [1, 33, 400, 1024])
+def test_p2pl_sums_plain_is_the_stacked_row_chain(m, lead, payload):
+    """``p2pl_sums`` on the CPU is the stacked 27-row chain, bit for bit (NaN
+    payloads and the signs of zeros included), on masked, infinite, NaN and
+    signed-zero rows, whether q and n are payload views or contiguous."""
+    reset_launch_counts()
+    pts, q, n, w = _p2pl_inputs(lead, m, payload, seed=m)
+    got = rowsum.p2pl_sums(pts, q, n, w)
+    assert got.shape == lead + (27,) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(_p2pl_stacked_chain(pts, q, n, w)))
+    assert not torch.isfinite(got.view(-1, 27)[0]).all()  # the infinite normal
+    assert torch.isnan(got.view(-1, 27)[-1]).any()  # the NaN point under w = 0
+    if got.view(-1, 27).shape[0] > 2:
+        assert torch.equal(_bits(got.view(-1, 27)[1]), _bits(torch.zeros(27)))  # +0.0 sums
+    assert KERNELS["p2pl_sums"].launches == 0
+
+
+def _same_bits(a, b):
+    """Bit-equal, a NaN anywhere matching a NaN (the CPU and the card give
+    NaNs other payloads)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        _bits(a.masked_fill(nan, 0.0)), _bits(b.masked_fill(nan, 0.0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead, m", [((512, 10), 1024), ((512,), 1024), ((37,), 333), ((1,), 1024),
+                                     ((3,), 1), ((2, 5), 33)])
+def test_p2pl_sums_kernel_equals_plain(cuda_device, lead, m):
+    """The normal-equation kernel against its plain version on the CPU, bit
+    for bit, at the rescue's verification shape ([512, 10, 1024]), the
+    ICP's ([512, 1024]), a ragged M, one lane and the CPU test's shapes; q
+    and n as row-stride-6 views of the search payload and contiguous; one
+    launch a call."""
+    for payload in (True, False):
+        pts, q, n, w = _p2pl_inputs(lead, m, payload, seed=m + len(lead))
+        want = rowsum.p2pl_sums_plain(pts, q, n, w)
+        card = [x.to(cuda_device) for x in (pts, q, n, w)]
+        if payload:  # the payload's layout, as the search returns it
+            rows = torch.cat([q, n], dim=-1).to(cuda_device)
+            card[1], card[2] = rows[..., :3], rows[..., 3:]
+            assert card[1].stride(-2) == 6 and card[2].stride(-2) == 6
+        reset_launch_counts()
+        got = rowsum.p2pl_sums(*card)
+        torch.cuda.synchronize()
+        assert KERNELS["p2pl_sums"].launches == 1 and KERNELS["row_sums"].launches == 0
+        assert _same_bits(got.cpu(), want), (lead, m, payload)
+
+
+@pytest.mark.gpu
+def test_p2pl_sums_kernel_takes_only_float32(cuda_device):
+    x = torch.zeros((2, 40, 3), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        rowsum.p2pl_sums(x, x, x, torch.zeros((2, 40), dtype=torch.float64, device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_a_replayed_bucket_solves_through_p2pl_sums(cuda_device, monkeypatch):
+    """``register_pairs_batched`` at the scan cell's knobs (2 rescue restarts,
+    8 verification solves, 8 ICP solves) launches the normal-equation kernel
+    16 times a bucket step, eager, captured or replayed (a replay adds its
+    capture's tally), and ``row_sums`` no more for those solves; a replayed
+    bucket gives the eager first sighting's T, fitness and RMSE bit for bit
+    on the same pairs and bits."""
+    from tpu3dm_torch.core.config import PipelineConfig
+    from tpu3dm_torch.io.synthetic import make_benchmark_pair
+    from tpu3dm_torch.preprocess.pipeline import preprocess_points_batch
+    from tpu3dm_torch.registration import batch, graphs
+    from tpu3dm_torch.utils.profiler import Profiler
+
+    cfg = PipelineConfig.with_voxel_size(0.3)
+    raw = [c for s in range(4) for c in make_benchmark_pair(20000, seed=s, sigma=0.01)[:2]]
+    procs = preprocess_points_batch(raw, cfg.preprocess, full_normals=False, device=cuda_device)
+    pairs = [(procs[2 * i], procs[2 * i + 1]) for i in range(4)]
+    monkeypatch.setattr(batch, "_STEP_GRAPHS", graphs.StepGraphs())
+    counters = ("batch.eager_steps", "batch.graph_captures", "batch.graph_replays")
+    results, launches, steps = [], [], []
+    Profiler.reset()
+    Profiler.enable()
+    try:
+        for _ in range(3):  # eager, captured (and replayed), replayed
+            reset_launch_counts()
+            res = batch.register_pairs_batched(
+                pairs, cfg, ransac_iterations=4096, icp_iterations=8, icp_solves_per_nn=2,
+                approx_score=True, rescue_restarts=2,
+                generator=torch.Generator().manual_seed(11), device=cuda_device)
+            torch.cuda.synchronize()
+            results.append(res)
+            launches.append({k: KERNELS[k].launches for k in ("p2pl_sums", "row_sums")})
+            c = Profiler.counters()
+            steps.append(tuple(c.get(k, 0) for k in counters))
+    finally:
+        Profiler.enable(False)
+        Profiler.reset()
+    buckets = len(set(results[0].bucket_of_pair))
+    assert steps[-1] == (buckets, buckets, buckets), steps
+    assert [n["p2pl_sums"] for n in launches] == [16 * buckets] * 3, launches
+    assert launches[0]["row_sums"] == launches[2]["row_sums"] > 0, launches
+    for field in ("transforms", "ransac_fitness", "icp_rmse"):
+        assert np.array_equal(getattr(results[2], field), getattr(results[0], field)), field
 
 
 def _fused_batch_inputs(device, n_pairs=8, cap=1024):

@@ -85,7 +85,7 @@ def test_import_needs_no_triton_nvcc_or_gpu():
         "                             'ransac_score',\n"
         "                             'ransac_score_bf16',\n"
         "                             'nn_tiled_smalld', 'nn_tiled_wide', 'nn_blocksparse',\n"
-        "                             'lane_nn_wide', 'row_sums'}, csrc.KERNELS\n"
+        "                             'lane_nn_wide', 'row_sums', 'p2pl_sums'}, csrc.KERNELS\n"
         "assert all(k._fn is None for k in csrc.KERNELS.values())\n"
         "assert csrc._host_lib is None\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu3dm')]\n"

@@ -15,10 +15,13 @@ through one of these instead:
     elementwise ops whose order is fixed by construction;
   - ``small_matmul`` / ``small_matvec``: products of 3x3 and 4x4 matrices
     (and of points by a rotation) as broadcast products and ``chain_sum``,
-    in place of batched GEMMs whose kernel follows the batch count.
+    in place of batched GEMMs whose kernel follows the batch count;
+  - ``p2pl_sums(pts, q, n, w)``: the 27 point-to-plane normal-equation sums
+    of each lane, ``row_sums``'s order over rows that are never written
+    (kernel csrc/p2pl_sums.cu on CUDA, ``p2pl_sums_plain`` on the CPU).
 
-No TPU kernel is replaced: the kernel's row in PERF.md is marked
-"port-only repair".
+No TPU kernel is replaced: the kernels' rows in PERF.md are marked
+"port-only".
 """
 
 from __future__ import annotations
@@ -28,8 +31,12 @@ import torch
 from tpu3dm_torch.csrc import I64, INT, PTR, Kernel, check_dtype, dispatch
 
 ROW_SUMS = Kernel("row_sums", "row_sums.cu", "t3t_row_sums", [PTR, PTR, I64, INT])
+P2PL_SUMS = Kernel("p2pl_sums", "p2pl_sums.cu", "t3t_p2pl_sums",
+                   [PTR, I64, PTR, I64, PTR, I64, PTR, PTR, I64, INT])
 
 LANES = 32
+# Entries of ``p2pl_sums``: the 21 of J^T W J's lower triangle, the 6 of J^T W r.
+P2PL_SUMS_N = 27
 # Dims this short are summed by ``chain_sum`` (elementwise adds) rather
 # than by a launch with one warp a row.
 CHAIN_MAX = 16
@@ -98,3 +105,56 @@ def small_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def small_matvec(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """a [..., n, k] @ v [..., k], each entry a ``chain_sum`` over k."""
     return chain_sum(a * v[..., None, :], dim=-1)
+
+
+def p2pl_sums_plain(pts: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic on any device: the Jacobian rows J = [n, p x
+    n] and residuals r = (p - q) . n of the correspondences, the 27 weighted
+    products (w J_i) J_j (i = 0..5, j = 0..i) and (w J_i) r stacked as
+    [..., 27, M] rows, then ``row_sums_plain``."""
+    px, py, pz = pts[..., 0], pts[..., 1], pts[..., 2]
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    J = (nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx)
+    r = (px - q[..., 0]) * nx + (py - q[..., 1]) * ny + (pz - q[..., 2]) * nz
+    rows = [w * J[i] * J[j] for i in range(6) for j in range(i + 1)]
+    return row_sums_plain(torch.stack(rows + [w * J[i] * r for i in range(6)], dim=-2))
+
+
+def _rows3(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] as [rows, 3] with a contiguous last dim: a view where the
+    layout allows one (a payload's ``[..., :3]`` keeps its row stride)."""
+    x = x.reshape(-1, 3)
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def p2pl_sums(pts: torch.Tensor, q: torch.Tensor, n: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """The point-to-plane normal-equation sums [..., 27] of float32 points
+    ``pts``, matched points ``q`` and normals ``n`` [..., M, 3] under weights
+    ``w`` [..., M]: entry k < 21 sums (w J_i) J_j in (i, j) row-major order
+    of the lower triangle, entry 21 + i sums (w J_i) r; each in ``row_sums``'s
+    order over M.  CPU tensors take ``p2pl_sums_plain``; CUDA tensors launch
+    csrc/p2pl_sums.cu (bit-equal to it) or raise.  ``q`` and ``n`` may be
+    strided views (the search payload's point and normal columns)."""
+    if not (pts.shape == q.shape == n.shape and pts.shape[-1:] == (3,)
+            and w.shape == pts.shape[:-1]):
+        raise ValueError(f"p2pl_sums: pts, q, n must be [..., M, 3] and w [..., M], got "
+                         f"{tuple(pts.shape)}, {tuple(q.shape)}, {tuple(n.shape)}, "
+                         f"{tuple(w.shape)}")
+    if dispatch("p2pl_sums", pts, q, n, w) == "cpu":
+        return p2pl_sums_plain(pts, q, n, w)
+    check_dtype("p2pl_sums", torch.float32, pts=pts, q=q, n=n, w=w)
+    devices = {t.device for t in (pts, q, n, w)}
+    if len(devices) != 1:
+        raise ValueError(f"p2pl_sums: tensors on several devices {devices}")
+    lead, m = w.shape[:-1], w.shape[-1]
+    out = torch.empty(lead + (P2PL_SUMS_N,), dtype=torch.float32, device=w.device)
+    lanes = out.numel() // P2PL_SUMS_N
+    if lanes == 0:
+        return out
+    p3, q3, n3 = _rows3(pts), _rows3(q), _rows3(n)
+    w = w.contiguous()
+    P2PL_SUMS.launch(w.device, p3.data_ptr(), p3.stride(0), q3.data_ptr(), q3.stride(0),
+                     n3.data_ptr(), n3.stride(0), w.data_ptr(), out.data_ptr(), lanes, m)
+    return out

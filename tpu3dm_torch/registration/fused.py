@@ -21,7 +21,9 @@ of every candidate, and an election on the verified fine-threshold count
 (RESCUE_TIE_RATIO / RESCUE_OVERRIDE_MARGIN, also the rule of registration/large.py).
 
 Every float sum over a pair's rows is ``ops.rowsum.ordered_sum`` (the
-ordered-row-sum kernel csrc/row_sums.cu on CUDA), and the small 3x3 / 4x4
+ordered-row-sum kernel csrc/row_sums.cu on CUDA) or, for the Gauss-Newton
+normal equations, ``ops.rowsum.p2pl_sums`` (csrc/p2pl_sums.cu, the same
+order over rows it never writes), and the small 3x3 / 4x4
 products are elementwise sums in a fixed order, so a pair's result has the
 same bits whatever the number of pairs in its call (JAX's serve contract:
 a request's result does not depend on its micro-batch).
@@ -47,7 +49,7 @@ import torch
 from tpu3dm_torch import resolve_device
 from tpu3dm_torch.core import se3
 from tpu3dm_torch.ops.nn_lane import nn_mutual_mask_batched, nn_search_lane
-from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, row_sums, small_matmul, small_matvec
+from tpu3dm_torch.ops.rowsum import chain_sum, ordered_sum, p2pl_sums, small_matmul, small_matvec
 from tpu3dm_torch.parallel.multipair import (
     checked_bits,
     chunk_bits_shape,
@@ -152,15 +154,9 @@ def _solve6_cholesky(A, b):
 def _p2pl_delta_planar(pts, q, n, w):
     """Point-to-plane Gauss-Newton step xi [B, 6] from weighted
     correspondences (pts, q, n [B, ..., M, 3], w [B, ..., M]): the 21 unique
-    entries of J^T W J and the 6 of -J^T W r as one ``row_sums`` launch over
-    [B, ..., 27, M] rows, then the Cholesky solve; a lane with a non-finite
-    step moves by zero."""
-    px, py, pz = pts[..., 0], pts[..., 1], pts[..., 2]
-    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
-    J = (nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx)
-    r = (px - q[..., 0]) * nx + (py - q[..., 1]) * ny + (pz - q[..., 2]) * nz
-    rows = [w * J[i] * J[j] for i in range(6) for j in range(i + 1)]
-    sums = row_sums(torch.stack(rows + [w * J[i] * r for i in range(6)], dim=-2))
+    entries of J^T W J and the 6 of -J^T W r as one ``p2pl_sums`` launch,
+    then the Cholesky solve; a lane with a non-finite step moves by zero."""
+    sums = p2pl_sums(pts, q, n, w)
     A = [[None] * 6 for _ in range(6)]
     k = 0
     for i in range(6):
